@@ -1,0 +1,164 @@
+"""Build, load and launch the package's CUDA kernels.
+
+Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper
+(``-gencode arch=compute_90a,code=sm_90a``), one ``nvcc`` process per source,
+all started together, then linked into one shared library with a plain C
+interface and loaded with ``ctypes``. The library is built at first use into
+``_build/`` beside this file (listed in ``.gitignore``), under a name that
+hashes the sources and flags, so an edited source is rebuilt and an unchanged
+one is loaded as it is. Nothing is built when this module is imported.
+
+Each C entry point takes its pointers and the CUDA stream as ``void*``,
+launches on PyTorch's current stream, does not synchronise, and returns
+``cudaGetLastError()``; :func:`launch` raises on a non-zero code and only
+then counts the launch in :data:`launches`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+
+import torch
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+CSRC_DIR = os.path.join(_HERE, "csrc")
+BUILD_DIR = os.path.join(_HERE, "_build")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C signature of each kernel entry point (all return int = cudaError_t)
+_SIGNATURES = {
+    # xyz, b, n, npoint, idx_out, stream
+    "fps": (_P, _I, _I, _I, _P, _P),
+    # query, target, b, n, m, dist_out, idx_out, coords_out, stream
+    "nn_coords": (_P, _P, _I, _I, _I, _P, _P, _P, _P),
+    # query_sorted, target_sorted, b, n, m, dist_out, idx_out, stream
+    "nn_dyn": (_P, _P, _I, _I, _I, _P, _P, _P),
+}
+
+# launches of each kernel since the last reset_launch_counts()
+launches: dict[str, int] = {name: 0 for name in _SIGNATURES}
+
+_lib = None
+_lib_lock = threading.Lock()
+
+
+def reset_launch_counts() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    candidates = [os.path.join(home, "bin", "nvcc")] if home else []
+    candidates += [shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"]
+    for c in candidates:
+        if c and os.path.exists(c):
+            return c
+    raise RuntimeError(
+        "nvcc not found: building the CUDA kernels needs the CUDA toolkit "
+        "(put nvcc on PATH or set CUDA_HOME)"
+    )
+
+
+def _sources() -> list[str]:
+    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+
+
+def library_path() -> str:
+    """Path of the shared library for the current sources and flags."""
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for src in _sources() + sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh"))):
+        h.update(os.path.basename(src).encode())
+        with open(src, "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"librfnet_kernels_{h.hexdigest()[:16]}.so")
+
+
+def build() -> str:
+    """Compile csrc/*.cu into the shared library if it is not built yet.
+
+    Returns the library's path. The compiler's output (including ptxas'
+    register and shared-memory report) is kept in ``_build/build.log``.
+    Safe when several processes build at once: each builds in its own temporary
+    directory and renames the result into place.
+    """
+    so = library_path()
+    if os.path.exists(so):
+        return so
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = _nvcc()
+    tmp = tempfile.mkdtemp(dir=BUILD_DIR)
+    try:
+        objs, procs = [], []
+        for src in _sources():
+            obj = os.path.join(tmp, os.path.basename(src) + ".o")
+            objs.append(obj)
+            procs.append(subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", src, "-o", obj],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            ))
+        logs = [p.communicate()[0].decode(errors="replace") for p in procs]
+        failed = [
+            f"{src}:\n{log}"
+            for src, p, log in zip(_sources(), procs, logs) if p.returncode
+        ]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        tmp_so = os.path.join(tmp, "lib.so")
+        link = subprocess.run(
+            [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", tmp_so, *objs],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        )
+        if link.returncode:
+            raise RuntimeError("nvcc link failed:\n" + link.stdout.decode(errors="replace"))
+        with open(os.path.join(BUILD_DIR, "build.log"), "w") as f:
+            f.write("\n".join(logs))
+        os.replace(tmp_so, so)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return so
+
+
+def _library():
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            lib = ctypes.CDLL(build())
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, "rfnet_" + name)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
+            lib.rfnet_error_string.argtypes = [ctypes.c_int]
+            lib.rfnet_error_string.restype = ctypes.c_char_p
+            _lib = lib
+    return _lib
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+    """Call kernel entry ``rfnet_<name>`` on ``device``'s current stream.
+
+    ``args`` are the entry's arguments before the stream: tensors are passed
+    by data pointer, ints as ints. The caller validates shapes, dtypes,
+    devices and contiguity and keeps the tensors alive across the call.
+    """
+    lib = _library()
+    c_args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, "rfnet_" + name)(*c_args, stream)
+    if err:
+        msg = lib.rfnet_error_string(err).decode()
+        raise RuntimeError(f"CUDA kernel rfnet_{name} failed: error {err} ({msg})")
+    launches[name] += 1

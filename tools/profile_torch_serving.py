@@ -1,0 +1,106 @@
+#!/usr/bin/env python3
+"""Where the port's serving time goes on one CUDA card.
+
+    python3 tools/profile_torch_serving.py [--batch 4] [--iters 5]
+
+Runs the serving step of ``rfnet_tpu_torch.eval`` (full-width random-init
+RFNet forward + CD/fidelity metrics on synthetic clouds) under
+``torch.profiler`` and prints:
+
+* host wall time per step (to ``synchronize()``), summed device kernel time
+  per step, and the device's idle share = 1 - kernel time / wall time;
+* device time by kernel group (the port's three kernels, matrix products,
+  sort, everything else) and the top kernels by device time.
+
+Imports no JAX. Needs a CUDA card; fails without one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import subprocess
+import sys
+import time
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+GROUPS = (
+    ("K1 fps", ("fps_kernel",)),
+    ("K2 nn_coords", ("nn_coords_kernel",)),
+    ("K3 nn_dyn", ("nn_dyn_kernel",)),
+    ("matmul", ("gemm", "cutlass", "cublas", "sm90_xmma", "ampere")),
+    ("sort", ("sort", "radix")),
+)
+
+
+def group_of(name: str) -> str:
+    low = name.lower()
+    for group, keys in GROUPS:
+        if any(k in low for k in keys):
+            return group
+    return "other"
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.split("\n", 1)[0])
+    p.add_argument("--batch", type=int, default=4)
+    p.add_argument("--iters", type=int, default=5)
+    args = p.parse_args(argv)
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        print("profile_torch_serving: no CUDA device available", file=sys.stderr)
+        return 1
+    from rfnet_tpu_torch.data.dataset import synthetic_pairs
+    from rfnet_tpu_torch.eval import make_complete_fn
+    from rfnet_tpu_torch.models import RFNet
+
+    dev = torch.device("cuda", 0)
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip())
+    model = RFNet(generator=torch.Generator().manual_seed(0)).to(dev).eval()
+    complete, metrics = make_complete_fn(model)
+    pairs = list(synthetic_pairs(args.batch, seed=1234))
+    partial = torch.from_numpy(np.stack([q for _, q, _ in pairs])).to(dev)
+    gt = torch.from_numpy(np.stack([g for _, _, g in pairs])).to(dev)
+
+    def step():
+        out = complete(partial)
+        cd, emd = metrics(partial, out, gt)
+        return cd
+
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        for _ in range(args.iters):
+            step()
+        torch.cuda.synchronize(dev)
+        wall = (time.time() - t0) / args.iters
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    # device_time_total is in microseconds, summed over the profiled steps
+    dev_ms = {e.key: e.device_time_total / 1e3 / args.iters for e in events}
+    busy = sum(dev_ms.values())
+    print(f"batch {args.batch}: wall {wall * 1e3:.3f} ms/step, device kernels "
+          f"{busy:.3f} ms/step, idle share {1 - busy / (wall * 1e3):.3f}")
+    if busy == 0:
+        raise SystemExit("profiler recorded no device time")
+    by_group: dict[str, float] = {}
+    for name, ms in dev_ms.items():
+        by_group[group_of(name)] = by_group.get(group_of(name), 0.0) + ms
+    for group, ms in sorted(by_group.items(), key=lambda kv: -kv[1]):
+        print(f"  {group:14s} {ms:9.3f} ms/step  {ms / busy:6.1%}")
+    print("top kernels by device time:")
+    for name, ms in sorted(dev_ms.items(), key=lambda kv: -kv[1])[:12]:
+        print(f"  {ms:9.3f} ms/step  {name[:110]}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
