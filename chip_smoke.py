@@ -4,17 +4,26 @@
     python3 chip_smoke.py
 
 1. prints the card's name and power limit and builds the CUDA kernels from
-   rfnet_tpu_torch/csrc (nvcc, one process per source);
-2. holds each kernel (K1 FPS, K2 NN + coords, K3 early-exit NN) against its
-   plain PyTorch version at the serving path's shapes (batch 4) and times
-   kernel, plain version and a one-call PyTorch yardstick with CUDA events;
+   rfnet_tpu_torch/csrc (nvcc, one process per source, all at once);
+2. holds each kernel against its plain PyTorch version and times kernel,
+   plain version and a one-call PyTorch yardstick with CUDA events: K1 FPS,
+   K2 NN + coords and K3 early-exit NN at the serving path's shapes
+   (batch 4); K1, K2, K3, K4 dense NN, K5 chamfer-backward scatter and K6
+   approx-EMD cost at the trainer's shapes (batch 32, eval batch 4);
 3. serves 16 synthetic clouds in the PCN layout through
    ``rfnet_tpu_torch.eval.main`` on the card with a random-init full-width
-   RFNet, checks the CSV, and checks that every kernel was launched by that
-   run; then serves the first 4 clouds again on the CPU with the plain
-   versions and holds the card's CSV to it;
-4. times the full-width forward at batch 32;
-5. prints the per-kernel JSON line, then ``{"ok": true, "device": ...}``.
+   RFNet, checks the CSV, and checks the kernels that run launched; then
+   serves the first 4 clouds again on the CPU with the plain versions and
+   holds the card's CSV to it;
+4. trains the full-width RFNet at batch 32 on synthetic clouds through
+   ``rfnet_tpu_torch.train.train``: 4 Adam steps with two evals and two
+   checkpoints, then a resume that takes one more step; checks the losses,
+   the files, the resume and the launch counts of every kernel; times the
+   train step and the eval;
+5. runs one full-width train step at batch 2 on the card and on the CPU
+   from the same weights and batch and holds the two to each other;
+6. times the full-width forward at batch 32;
+7. prints the per-kernel JSON line, then ``{"ok": true, "device": ...}``.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 It needs the rest of the repository: alone, or without a card, it fails.
@@ -67,13 +76,113 @@ def bound(flops: float, nbytes: float) -> tuple[float, str]:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def check_k3(name: str, qs, ts, library: bool = True) -> dict:
+    """K3 on z-sorted clouds against the full plain scan; returns its row.
+    The yardstick ``cdist(q, t).min(-1)`` is skipped where its (b, n, m)
+    matrix would not fit in the card's memory."""
+    import torch
+
+    from rfnet_tpu_torch.ops import chamfer
+
+    kd, ki = chamfer.nn_dyn(qs, ts)
+    pd, pi = chamfer._nn_sorted_plain(qs, ts)
+    torch.cuda.synchronize()
+    err = float((kd - pd).abs().max())
+    agree = float((ki == pi).float().mean())
+    check(err <= 1e-6, f"K3 {name}: distances differ from the full plain scan by {err}")
+    check(agree >= 0.999, f"K3 {name}: indices agree on only {agree:.6f}")
+    b, nq, m = qs.shape[0], qs.shape[1], ts.shape[1]
+    # pairs any exact z-slab walk must visit: targets with (qz-tz)^2 <= best
+    tz = ts[..., 2].contiguous()
+    r = torch.sqrt(kd)
+    lo = torch.searchsorted(tz, (qs[..., 2] - r).contiguous(), right=False)
+    hi = torch.searchsorted(tz, (qs[..., 2] + r).contiguous(), right=True)
+    pairs = float((hi - lo).sum())
+    ms = cuda_ms(lambda: chamfer.nn_dyn(qs, ts), 20)
+    plain_ms = cuda_ms(lambda: chamfer._nn_sorted_plain(qs, ts), 3, warmup=1)
+    lib_ms = cuda_ms(lambda: torch.cdist(qs, ts).min(-1), 5) if library else None
+    b_ms, b_by = bound(9.0 * pairs, 4.0 * b * (3 * nq + 3 * m + 2 * nq))
+    lib = f"{lib_ms:.4f} ms" if library else "not run (matrix too large)"
+    print(f"K3 nn_dyn {name} ({b},{nq},3)x({b},{m},3): max|dd| vs full plain scan {err:.3g}, "
+          f"index agreement {agree:.6f}; slab pairs {pairs:.0f} "
+          f"({pairs / (b * nq * m):.4%} of dense); kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, cdist.min {lib}, bound {b_ms:.6f} ms ({b_by})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms)
+
+
+def record(rows: dict, name: str, shape: str, row: dict, main: bool = False) -> None:
+    """Keep ``row`` under ``rows[name]["shapes"]``; the kernel's own numbers
+    in the JSON line are those of its ``main`` shape."""
+    entry = rows.setdefault(name, {"shapes": []})
+    entry["shapes"].append({"shape": shape, **row})
+    if main:
+        entry.update(row)
+
+
+def check_k1(x, npoint: int, iters: int) -> dict:
+    """K1 against the plain loop: identical indices required."""
+    import torch
+
+    from rfnet_tpu_torch.ops import fps
+
+    b, n = x.shape[0], x.shape[1]
+    k_idx = fps.farthest_point_sample(npoint, x)
+    p_idx = fps._fps_plain(x, npoint)
+    torch.cuda.synchronize()
+    check(torch.equal(k_idx, p_idx), f"K1 FPS ({b},{n},3)->{npoint}: indices differ from the "
+          f"plain version at {int((k_idx != p_idx).sum())} of {k_idx.numel()} picks")
+    ms = cuda_ms(lambda: fps.farthest_point_sample(npoint, x), iters)
+    plain_ms = cuda_ms(lambda: fps._fps_plain(x, npoint), 3, warmup=1)
+    b_ms, b_by = bound(8.0 * b * n * npoint, 4.0 * b * (3 * n + npoint))
+    print(f"K1 fps ({b},{n},3)->{npoint}: indices identical; kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None)
+
+
+def check_k2(q, t) -> dict:
+    """K2 against the plain dense scan: distances, and coordinates wherever
+    the indices agree; a differing index must be an exact tie."""
+    import torch
+
+    from rfnet_tpu_torch.ops import chamfer
+
+    b, nq, m = q.shape[0], q.shape[1], t.shape[1]
+    kd, ki, kc = chamfer.nn_coords(q, t)
+    pd, pi = chamfer._one_sided(q, t)
+    pc = chamfer._gather_rows(t, pi)
+    torch.cuda.synchronize()
+    err = float((kd - pd).abs().max())
+    same = ki == pi
+    # both run one op chain, so 0 is expected; 1e-6 absolute leaves room
+    # only for a rounding difference, at distances of order 1e-4..1e-1
+    check(err <= 1e-6, f"K2 ({b},{nq})->{m}: distances differ by {err}")
+    check(bool(torch.equal(kc[same], pc[same])), f"K2 ({b},{nq})->{m}: coordinates differ")
+    # where the indices differ the two picks must be equally near
+    tie_gap = ((kc - q).square().sum(-1) - (pc - q).square().sum(-1))[~same]
+    check(tie_gap.numel() == 0 or float(tie_gap.abs().max()) <= 1e-6,
+          f"K2 ({b},{nq})->{m}: a differing pick is not a tie")
+    agree = float(same.float().mean())
+    check(agree >= 0.999, f"K2 ({b},{nq})->{m}: indices agree on only {agree:.6f}")
+    ms = cuda_ms(lambda: chamfer.nn_coords(q, t), 20)
+    plain_ms = cuda_ms(lambda: chamfer._one_sided(q, t), 3)
+    lib_ms = cuda_ms(lambda: torch.cdist(q, t).min(-1), 10)
+    b_ms, b_by = bound(9.0 * b * nq * m, 4.0 * b * (3 * nq + 3 * m + 5 * nq))
+    print(f"K2 nn_coords ({b},{nq},3)x({b},{m},3): max|dd| {err:.3g}, index agreement "
+          f"{agree:.6f}, coords equal where indices agree; kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, cdist.min {lib_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms)
+
+
 def check_kernels(dev):
-    """Phase 2: every kernel against its plain version at main-path shapes."""
+    """Phase 2: every kernel against its plain version at the serving shapes."""
     import numpy as np
     import torch
 
     from rfnet_tpu_torch.data.dataset import synthetic_pairs
-    from rfnet_tpu_torch.ops import chamfer, fps
+    from rfnet_tpu_torch.ops import chamfer
 
     pairs = list(synthetic_pairs(B, seed=7))
     partial = torch.from_numpy(np.stack([p for _, p, _ in pairs])).to(dev)  # (4, 3000, 3)
@@ -84,81 +193,293 @@ def check_kernels(dev):
     rows = {}
 
     # K1: 32 seeds of the 3000-point input, as the model's forward samples
-    n, npoint = partial.shape[1], 32
-    k_idx = fps.farthest_point_sample(npoint, partial)
-    p_idx = fps._fps_plain(partial, npoint)
-    torch.cuda.synchronize()
-    check(torch.equal(k_idx, p_idx), "K1 FPS indices differ from the plain version")
-    ms = cuda_ms(lambda: fps.farthest_point_sample(npoint, partial), 50)
-    plain_ms = cuda_ms(lambda: fps._fps_plain(partial, npoint), 5)
-    b_ms, b_by = bound(8.0 * B * n * npoint, 4.0 * B * (3 * n + npoint))
-    print(f"K1 fps ({B},{n},3)->{npoint}: indices identical; kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
-    rows["fps"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                       bound_by=b_by, library_ms=None)
-
+    record(rows, "fps", f"({B},3000,3)->32", check_k1(partial, 32, 50), main=True)
     # K2: the three merge scans, 64 / 1024 / 16384 queries into the input
     for nq in (64, 1024, 16384):
-        q = out[:, :nq].contiguous()
-        kd, ki, kc = chamfer.nn_coords(q, partial)
-        pd, pi = chamfer._one_sided(q, partial)
-        pc = chamfer._gather_rows(partial, pi)
-        torch.cuda.synchronize()
-        err = float((kd - pd).abs().max())
-        same = ki == pi
-        # both run one op chain, so 0 is expected; 1e-6 absolute leaves room
-        # only for a rounding difference, at distances of order 1e-4..1e-1
-        check(err <= 1e-6, f"K2 nq={nq}: distances differ by {err}")
-        check(bool(torch.equal(kc[same], pc[same])), f"K2 nq={nq}: coordinates differ off ties")
-        # where the indices differ the two picks must be equally near
-        tie_gap = ((kc - q).square().sum(-1) - (pc - q).square().sum(-1))[~same]
-        check(tie_gap.numel() == 0 or float(tie_gap.abs().max()) <= 1e-6,
-              f"K2 nq={nq}: a differing pick is not a tie")
-        agree = float(same.float().mean())
-        check(agree >= 0.999, f"K2 nq={nq}: indices agree on only {agree:.6f}")
-        ms = cuda_ms(lambda: chamfer.nn_coords(q, partial), 20)
-        plain_ms = cuda_ms(lambda: chamfer._one_sided(q, partial), 3)
-        lib_ms = cuda_ms(lambda: torch.cdist(q, partial).min(-1), 10)
-        m = partial.shape[1]
-        b_ms, b_by = bound(9.0 * B * nq * m, 4.0 * B * (3 * nq + 3 * m + 5 * nq))
-        print(f"K2 nn_coords ({B},{nq},3)x({B},{m},3): max|dd| {err:.3g}, index agreement "
-              f"{agree:.6f}, coords equal where indices agree; kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, cdist.min {lib_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
-        if nq == 16384:
-            rows["nn_coords"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                     bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+        record(rows, "nn_coords", f"({B},{nq},3)x({B},3000,3)",
+               check_k2(out[:, :nq].contiguous(), partial), main=nq == 16384)
 
     # K3: the eval metrics' three sorted scans
     gts, _ = chamfer.sort_by_z_with_order(gt)
     outs, _ = chamfer.sort_by_z_with_order(out)
     parts, _ = chamfer.sort_by_z_with_order(partial)
-    for name, qs, ts in (("out->gt", outs, gts), ("gt->out", gts, outs), ("partial->out", parts, outs)):
-        kd, ki = chamfer.nn_dyn(qs, ts)
-        pd, pi = chamfer._nn_sorted_plain(qs, ts)
+    for name, qs, ts in (("out->gt", outs, gts), ("gt->out", gts, outs),
+                         ("partial->out", parts, outs)):
+        record(rows, "nn_dyn", f"{name} {tuple(qs.shape)}x{tuple(ts.shape)}",
+               check_k3(name, qs, ts), main=name == "out->gt")
+    return rows
+
+
+def train_batch(b: int, seed: int):
+    """(partial (b, 3000, 3), gt (b, 16384, 3)) synthetic clouds on the CPU."""
+    import numpy as np
+    import torch
+
+    from rfnet_tpu_torch.data.dataset import synthetic_pairs
+
+    pairs = list(synthetic_pairs(b, seed=seed))
+    return (torch.from_numpy(np.stack([p for _, p, _ in pairs])),
+            torch.from_numpy(np.stack([g for _, _, g in pairs])))
+
+
+def check_train_kernels(dev, rows: dict) -> None:
+    """Phase 2b: K1-K6 against their plain versions at the trainer's shapes
+    (batch 32; the eval's batch 4 for K6), recorded into ``rows``."""
+    import torch
+
+    from rfnet_tpu_torch.ops import chamfer, emd, fps
+    from rfnet_tpu_torch.ops.nn_grad import _scatter_plain, nn_grad_scatter
+
+    partial, gt = (x.to(dev) for x in train_batch(32, seed=11))
+    gen = torch.Generator(device=dev).manual_seed(11)
+    # completion-like outputs: the gt jittered by 0.005 (out3 and out4)
+    out_a = gt + 0.005 * torch.randn(gt.shape, generator=gen, device=dev)
+    out_b = gt + 0.005 * torch.randn(gt.shape, generator=gen, device=dev)
+
+    # K1: the step's seeds of the input and its two ground-truth pyramids
+    record(rows, "fps", "(32,3000,3)->32", check_k1(partial, 32, 50))
+    for npoint in (64, 1024):
+        record(rows, "fps", f"(32,16384,3)->{npoint}", check_k1(gt, npoint, 20))
+    gt1 = fps.gather_point(gt, fps.farthest_point_sample(64, gt))
+    gt2 = fps.gather_point(gt, fps.farthest_point_sample(1024, gt))
+    # K2: the three merge scans of the forward, outputs into the input
+    for nq in (64, 1024, 16384):
+        record(rows, "nn_coords", f"(32,{nq},3)x(32,3000,3)",
+               check_k2(out_a[:, :nq].contiguous(), partial))
+
+    # K4: zero_groupnear's two scans, rawpts -> ptcens
+    for q, t in ((gt2, gt1), (gt, gt2)):
+        b, nq, m = q.shape[0], q.shape[1], t.shape[1]
+        kd, ki = chamfer.nn_dense(q, t)
+        pd, pi = chamfer._one_sided(q, t)
         torch.cuda.synchronize()
         err = float((kd - pd).abs().max())
-        agree = float((ki == pi).float().mean())
-        check(err <= 1e-6, f"K3 {name}: distances differ from the full plain scan by {err}")
-        check(agree >= 0.999, f"K3 {name}: indices agree on only {agree:.6f}")
-        nq, m = qs.shape[1], ts.shape[1]
-        # pairs any exact z-slab walk must visit: targets with (qz-tz)^2 <= best
-        tz = ts[..., 2].contiguous()
-        r = torch.sqrt(kd)
-        lo = torch.searchsorted(tz, (qs[..., 2] - r).contiguous(), right=False)
-        hi = torch.searchsorted(tz, (qs[..., 2] + r).contiguous(), right=True)
-        pairs = float((hi - lo).sum())
-        ms = cuda_ms(lambda: chamfer.nn_dyn(qs, ts), 20)
-        plain_ms = cuda_ms(lambda: chamfer._nn_sorted_plain(qs, ts), 3)
-        lib_ms = cuda_ms(lambda: torch.cdist(qs, ts).min(-1), 5)
-        b_ms, b_by = bound(9.0 * pairs, 4.0 * B * (3 * nq + 3 * m + 2 * nq))
-        print(f"K3 nn_dyn {name} ({B},{nq},3)x({B},{m},3): max|dd| vs full plain scan {err:.3g}, "
-              f"index agreement {agree:.6f}; slab pairs {pairs:.0f} "
-              f"({pairs / (B * nq * m):.4%} of dense); kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, cdist.min {lib_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
-        if name == "out->gt":
-            rows["nn_dyn"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                  bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
-    return rows
+        check(err == 0.0, f"K4 {nq}->{m}: distances differ from the plain scan by {err}")
+        same = ki == pi
+        # where the indices differ (an exact tie, found in another order by
+        # the plain min) the two picks must be equally near
+        tq = q[~same]
+        tie_gap = ((chamfer._gather_rows(t, ki)[~same] - tq).square().sum(-1)
+                   - (chamfer._gather_rows(t, pi)[~same] - tq).square().sum(-1))
+        check(tie_gap.numel() == 0 or float(tie_gap.abs().max()) <= 1e-6,
+              f"K4 {nq}->{m}: a differing pick is not a tie")
+        agree = float(same.float().mean())
+        ms = cuda_ms(lambda: chamfer.nn_dense(q, t), 20)
+        plain_ms = cuda_ms(lambda: chamfer._one_sided(q, t), 3)
+        lib_ms = cuda_ms(lambda: torch.cdist(q, t).min(-1), 10)
+        b_ms, b_by = bound(9.0 * b * nq * m, 4.0 * b * (3 * nq + 3 * m + 2 * nq))
+        print(f"K4 nn_dense ({b},{nq},3)x({b},{m},3): distances bit-equal, index agreement "
+              f"{agree:.6f}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, cdist.min "
+              f"{lib_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
+        record(rows, "nn_dense", f"({b},{nq},3)x({b},{m},3)",
+               dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                    library_ms=lib_ms), main=nq == 16384)
+
+    # K3 at the loss's shapes: the pair (gt twice, out3 and out4 stacked)
+    # both ways, and re_chamfer's slices folded into the batch both ways
+    gts, _ = chamfer.sort_by_z_with_order(gt)
+    outs, _ = chamfer.sort_by_z_with_order(torch.cat([out_a, out_b], 0))
+    gt2x = torch.cat([gts, gts], 0)
+    ps, _ = chamfer.sort_by_z_with_order(out_a.reshape(256, 2048, 3))
+    gss, _ = chamfer.sort_by_z_with_order(gt.reshape(256, 2048, 3))
+    for name, qs, ts in (("pair gt->out", gt2x, outs), ("pair out->gt", outs, gt2x),
+                         ("re_chamfer pred->gt", ps, gss), ("re_chamfer gt->pred", gss, ps)):
+        # cdist's (64, 16384, 16384) matrix of the pair would take 64 GiB
+        record(rows, "nn_dyn", f"{name} {tuple(qs.shape)}x{tuple(ts.shape)}",
+               check_k3(name, qs, ts, library=name.startswith("re_chamfer")))
+
+    # K5: the two scatters a train step runs, with real argmins from K3
+    d1, i1 = chamfer.nn_dyn(gt2x, outs)  # pair: gt rows routed onto outputs
+    g1 = 1.0 / (64 * 16384 * 2.0 * torch.clamp(torch.sqrt(d1), min=1e-7))
+    d2, i2 = chamfer.nn_dyn(gss, ps)  # re_chamfer: gt slices onto predictions
+    g2 = 1.0 / (256 * 2048 * 2.0 * torch.clamp(torch.sqrt(d2), min=1e-7))
+    cases = (("pair", gt2x, g1, i1), ("re_chamfer", gss, g2, i2),
+             ("pair all-to-one", gt2x, g1, torch.full_like(i1, 16383)))
+    for name, x1, g, idx in cases:
+        b, nq = idx.shape
+        m = nq
+        ksp, ksw = nn_grad_scatter(x1, g, idx, m)
+        psp, psw = _scatter_plain(x1.cpu(), g.cpu(), idx.cpu(), m)  # index_add_ in order
+        torch.cuda.synchronize()
+        err = max(float((ksp.cpu() - psp).abs().max()), float((ksw.cpu() - psw).abs().max()))
+        check(torch.equal(ksp.cpu(), psp) and torch.equal(ksw.cpu(), psw),
+              f"K5 {name}: sums differ from the CPU plain version by {err}")
+        src = torch.cat([g[..., None] * x1, g[..., None]], -1).reshape(-1, 4)
+        flat = (idx.long() + m * torch.arange(b, device=dev)[:, None]).reshape(-1)
+        ms = cuda_ms(lambda: nn_grad_scatter(x1, g, idx, m), 20)
+        plain_ms = cuda_ms(lambda: _scatter_plain(x1, g, idx, m), 20)
+        lib_ms = cuda_ms(lambda: torch.zeros(b * m, 4, device=dev).index_add_(0, flat, src), 20)
+        b_ms, b_by = bound(8.0 * b * nq, 20.0 * b * nq + 16.0 * b * m)
+        print(f"K5 nn_grad {name} ({b},{nq})->{m}: equal to the CPU plain version bit for bit; "
+              f"kernel (with its index sort) {ms:.4f} ms, plain {plain_ms:.4f} ms, index_add_ "
+              f"{lib_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
+        record(rows, "nn_grad", f"{name} ({b},{nq})->{m}",
+               dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                    library_ms=lib_ms), main=name == "pair")
+
+    # K6: the eval's approx-EMD cost, 4 clouds of 16384 points
+    x1, x2 = gt[:4].contiguous(), out_a[:4].contiguous()
+    kc = emd.approx_match_cost(x1, x2)
+    pc = emd._approx_match_cost_plain(x1, x2)
+    torch.cuda.synchronize()
+    rel = float(((kc - pc).abs() / pc.abs()).max())
+    check(bool(torch.isfinite(kc).all()) and rel <= 2e-4, f"K6: cost {kc} vs plain {pc}")
+    ms = cuda_ms(lambda: emd.approx_match_cost(x1, x2), 3, warmup=1)
+    plain_ms = cuda_ms(lambda: emd._approx_match_cost_plain(x1, x2), 1, warmup=0)
+    # per pair: d2 and its root once (9 ops), then per level exp, the row and
+    # column sums, delta, its cost and its row sum (10 ops) over 10 levels
+    n = x1.shape[1]
+    b_ms, b_by = bound(109.0 * 4 * n * n, 4.0 * (2 * 4 * n * 3 + 4))
+    print(f"K6 emd_cost (4,{n},3)x(4,{n},3): max rel diff vs plain {rel:.3g} (rtol 2e-4); "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
+    record(rows, "emd_cost", f"(4,{n},3)x(4,{n},3)",
+           dict(max_abs_err=float((kc - pc).abs().max()), ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None), main=True)
+
+
+# launches of each kernel in one train step and in one eval batch of 4
+STEP_LAUNCHES = {"fps": 3, "nn_coords": 3, "nn_dyn": 4, "nn_dense": 2, "nn_grad": 2,
+                 "emd_cost": 0}
+EVAL_LAUNCHES = {"fps": 1, "nn_coords": 3, "nn_dyn": 2, "nn_dense": 0, "nn_grad": 0,
+                 "emd_cost": 1}
+
+
+def expected_launches(steps: int, evals: int) -> dict:
+    return {k: steps * STEP_LAUNCHES[k] + evals * EVAL_LAUNCHES[k] for k in STEP_LAUNCHES}
+
+
+def read_jsonl(path: str) -> list[dict]:
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def train_run(dev):
+    """Phase 4: the trainer end to end at full width, batch 32; returns the
+    launch counts of its first run."""
+    import dataclasses
+
+    import torch
+
+    from rfnet_tpu_torch import kernels, train
+    from rfnet_tpu_torch.data.dataset import synthetic_dataflow
+
+    root = os.path.join(WORK, "train")
+    workdir = os.path.join(root, "model")
+    config = train.TrainConfig(iters=4, batch_size=32, eval_size=4, log_every=1, ckpt_every=2,
+                               workdir=workdir)
+
+    def run(cfg):
+        df, _ = synthetic_dataflow(64, cfg.batch_size, cfg.innum, cfg.ptnum)
+        vdf, vn = synthetic_dataflow(4, cfg.eval_size, cfg.innum, cfg.ptnum, is_training=False,
+                                     seed=1234)
+        buf = io.StringIO()
+        kernels.reset_launch_counts()
+        with contextlib.redirect_stdout(buf):
+            state = train.train(cfg, df, vdf, vn, device=dev)
+        torch.cuda.synchronize(dev)
+        counts = dict(kernels.launches)
+        print(buf.getvalue(), end="")
+        return state, counts, buf.getvalue()
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    state, counts, _ = run(config)
+    peak = torch.cuda.max_memory_allocated(dev)
+    want = expected_launches(4, 2)
+    print(f"launches in the train run (4 steps, 2 evals of 1 batch): {counts} (expected {want}: "
+          f"per step {STEP_LAUNCHES}, per eval batch {EVAL_LAUNCHES})")
+    check(counts == want, f"train launch counts {counts}")
+    check(state.step == 4, f"trained to step {state.step}")
+    check(sorted(os.listdir(workdir)) == ["ckpt_2.pt", "ckpt_4.pt"], "checkpoints")
+    with open(os.path.join(root, "bestrecord", "best.json")) as f:
+        best = json.load(f)
+    check(best["step"] in (2, 4) and math.isfinite(best["cd"]), f"best.json {best}")
+    check(os.path.exists(os.path.join(root, "bestrecord", "model.pt")), "best model.pt")
+    lines = read_jsonl(os.path.join(root, "logs", "metrics.jsonl"))
+    losses_ = [x for x in lines if "total" in x]
+    evals = [x for x in lines if "eval_cd" in x]
+    check([x["step"] for x in losses_] == [0, 1, 2, 3], f"metrics steps {lines}")
+    check(all(math.isfinite(v) for x in losses_ for v in x.values()), "a non-finite loss term")
+    check([x["step"] for x in evals] == [2, 4]
+          and all(math.isfinite(x["eval_cd"]) and math.isfinite(x["eval_emd"]) for x in evals),
+          f"eval lines {evals}")
+
+    # resume: the latest checkpoint (step 4) is restored and one step taken
+    state, counts_r, text = run(dataclasses.replace(config, iters=5))
+    check("restored checkpoint at step 4" in text and state.step == 5, "resume")
+    check(counts_r == expected_launches(1, 0), f"resume launch counts {counts_r}")
+    check(len(read_jsonl(os.path.join(root, "logs", "metrics.jsonl"))) == len(lines) + 1,
+          "resume metrics line")
+    print(f"train: 4 steps + 2 evals, then resumed at step 4 and took step 5; every loss term "
+          f"finite; max_memory_allocated {peak} bytes")
+
+    # time the step and the eval on a fixed batch, warm-up excluded
+    partial, gt = (x.to(dev) for x in train_batch(32, seed=21))
+    n1, n2 = 2 * config.n_seed, 2 * config.n_seed * config.up_ratio
+    train.train_step(state, partial, gt, n1=n1, n2=n2)
+    torch.cuda.synchronize(dev)
+    t0 = time.time()
+    for _ in range(3):
+        train.train_step(state, partial, gt, n1=n1, n2=n2)
+    torch.cuda.synchronize(dev)
+    step_ms = (time.time() - t0) / 3 * 1e3
+    p4, g4 = partial[:4].contiguous(), gt[:4].contiguous()
+    train.eval_step(state, p4, g4)
+    torch.cuda.synchronize(dev)
+    t0 = time.time()
+    for _ in range(3):
+        train.eval_step(state, p4, g4)
+    torch.cuda.synchronize(dev)
+    eval_ms = (time.time() - t0) / 3 * 1e3
+    print(f"train step b32: {step_ms:.3f} ms, {32 / step_ms * 1e3:.1f} clouds/s; "
+          f"eval step b4: {eval_ms:.3f} ms/batch")
+    return counts
+
+
+def cross_check_step(dev):
+    """Phase 5: one full-width train step at batch 2 on the card and on the
+    CPU, from the same weights (the port's seeded init) and batch. The loss
+    terms agree to 1e-3 relative; the gradients to 2e-4 relative L2 over
+    all parameters and 1e-2 per parameter: the model's matmuls sum in other
+    orders on the two devices, which can flip a near-tie argmin of the
+    random-init output and move a small gradient (an H100 run gave 1.4e-5
+    and 5.8e-4)."""
+    import torch
+
+    from rfnet_tpu_torch import train
+
+    partial, gt = train_batch(2, seed=31)
+    config = train.TrainConfig(batch_size=2)
+    n1, n2 = 2 * config.n_seed, 2 * config.n_seed * config.up_ratio
+    res = []
+    for d in (dev, torch.device("cpu")):
+        state = train.create_state(config, d)
+        lb, _ = train.train_step(state, partial.to(d), gt.to(d), n1=n1, n2=n2)
+        res.append(({k: float(v) for k, v in lb._asdict().items()},
+                    {n: (p.grad.cpu() if p.grad is not None else None)
+                     for n, p in state.model.named_parameters()}))
+    (lk, gk), (lc, gc) = res
+    worst_loss = 0.0
+    for k in lk:
+        diff = abs(lk[k] - lc[k])
+        check(diff <= 1e-3 * max(abs(lk[k]), abs(lc[k])) + 1e-7, f"{k}: card {lk[k]} cpu {lc[k]}")
+        worst_loss = max(worst_loss, diff / max(abs(lc[k]), 1e-30))
+    num = den = 0.0
+    worst = (0.0, "")
+    for n in gk:
+        check((gk[n] is None) == (gc[n] is None), f"{n}: gradient on one device only")
+        if gk[n] is None:
+            continue
+        d2 = float((gk[n].double() - gc[n].double()).square().sum())
+        r2 = float(gc[n].double().square().sum())
+        num, den = num + d2, den + r2
+        rel = math.sqrt(d2 / max(r2, 1e-60))
+        check(rel <= 1e-2, f"{n}: gradient differs by {rel:.3g} relative L2")
+        worst = max(worst, (rel, n))
+    total = math.sqrt(num / den)
+    check(total <= 2e-4, f"gradients differ by {total:.3g} relative L2")
+    print(f"train step b2, card vs CPU: loss terms within {worst_loss:.3g} relative; gradients "
+          f"{total:.3g} relative L2 over all parameters, worst parameter {worst[1]} "
+          f"{worst[0]:.3g}")
 
 
 def write_evalset(root: str, num: int) -> list[str]:
@@ -223,8 +544,8 @@ def serve(dev):
     n_batches = 16 // B
     print(f"launches in the serving run: {counts} (expected fps {n_batches}, "
           f"nn_coords {3 * n_batches}, nn_dyn {3 * n_batches})")
-    check(counts == {"fps": n_batches, "nn_coords": 3 * n_batches, "nn_dyn": 3 * n_batches},
-          f"launch counts {counts}")
+    check(counts == {"fps": n_batches, "nn_coords": 3 * n_batches, "nn_dyn": 3 * n_batches,
+                     "nn_dense": 0, "nn_grad": 0, "emd_cost": 0}, f"launch counts {counts}")
     avg = re.search(r"Average time: ([0-9.eE+-]+)", text)
     check(avg is not None, "no 'Average time' line")
     print(f"serving: Average time {float(avg.group(1)):.6f} s/cloud (batch {B}, models 12-15), "
@@ -301,18 +622,27 @@ def main() -> int:
     os.makedirs(WORK)
     try:
         rows = check_kernels(dev)
-        counts = serve(dev)
+        check_train_kernels(dev, rows)
+        serve_counts = serve(dev)
+        train_counts = train_run(dev)
+        cross_check_step(dev)
         forward_throughput(dev)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 
-    src = {"fps": ("rfnet_tpu_torch/csrc/fps.cu", "rfnet_tpu/ops/pallas/fps.py:73"),
-           "nn_coords": ("rfnet_tpu_torch/csrc/nn_coords.cu", "rfnet_tpu/ops/pallas/chamfer.py:153"),
-           "nn_dyn": ("rfnet_tpu_torch/csrc/nn_dyn.cu", "rfnet_tpu/ops/pallas/chamfer_dyn.py:170")}
+    src = {"fps": ("fps.cu", "rfnet_tpu/ops/pallas/fps.py:73", "serve"),
+           "nn_coords": ("nn_coords.cu", "rfnet_tpu/ops/pallas/chamfer.py:153", "serve"),
+           "nn_dyn": ("nn_dyn.cu", "rfnet_tpu/ops/pallas/chamfer_dyn.py:170", "serve"),
+           "nn_dense": ("nn_dense.cu", "rfnet_tpu/ops/pallas/chamfer.py:222", "train"),
+           "nn_grad": ("nn_grad.cu", "rfnet_tpu/ops/pallas/nn_grad.py:81", "train"),
+           "emd_cost": ("emd_cost.cu", "rfnet_tpu/ops/pallas/emd.py:347", "train")}
+    by_path = {"serve": serve_counts, "train": train_counts}
     line = {"kernels": [
-        {"name": name, "route": "cuda", "source": src[name][0], "replaces": src[name][1],
-         "launches": counts[name], "pass": True, **rows[name]}
-        for name in ("fps", "nn_coords", "nn_dyn")
+        {"name": name, "route": "cuda", "source": "rfnet_tpu_torch/csrc/" + file,
+         "replaces": replaces, "launches": by_path[path][name],
+         "launches_by_path": {p: c.get(name, 0) for p, c in by_path.items()},
+         "pass": True, **rows[name]}
+        for name, (file, replaces, path) in src.items()
     ]}
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

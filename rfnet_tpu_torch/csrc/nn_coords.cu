@@ -1,87 +1,14 @@
 // K2: one-sided nearest-neighbour scan that also returns the neighbour.
 //
 // Replaces the TPU kernel rfnet_tpu/ops/pallas/chamfer.py:nn_coords_pallas
-// (body _make_coords_kernel). For every query q of a cloud it scans all
-// targets t of the same cloud for the least
-//     e = |t|^2 - 2 q.t            (the query norm cannot change the argmin)
-// under strict <, so the lowest index wins ties, then writes
-//     dist = max(e_best + |q|^2, 0),  idx = argmin,  coords = t[idx] (exact).
-// The operation order, (x*x + y*y) + z*z and (tx*qx + ty*qy) + tz*qz, each
-// step rounded with no fused multiply-add, is the plain version's
-// (ops/chamfer.py:_one_sided), so distances and indices agree bit for bit.
-//
-// Design: one thread per query, 256 queries a block, grid (query blocks, b).
-// Targets stream through shared memory in tiles of 1024 points packed as
-// float4 (x, y, z, |t|^2), so one 16-byte broadcast load feeds one pair.
-// Bound on the H100: about 9 fp32 operations a pair outside the tensor cores
-// (the merge shapes are 64, 1024 and 16384 queries against 3000 targets), so
-// the scan is compute-bound; bytes are 12 per point read and 20 per query
-// written.
+// (body _make_coords_kernel). The scan, its rounding and its bound are in
+// nn_scan.cuh, shared with K4 (nn_dense.cu); this entry also writes the
+// argmin's coordinates, which the merge layer consumes.
 
-#include "common.cuh"
-
-namespace {
-
-constexpr int kThreads = 256;
-constexpr int kTile = 1024;
-
-__global__ void __launch_bounds__(kThreads)
-nn_coords_kernel(const float* __restrict__ query, const float* __restrict__ target,
-                 int n, int m, float* __restrict__ dist, int* __restrict__ idx,
-                 float* __restrict__ coords) {
-  __shared__ float4 tile[kTile];
-  const int b = blockIdx.y;
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  const float* t = target + static_cast<size_t>(b) * m * 3;
-  const bool live = i < n;
-  float qx = 0.f, qy = 0.f, qz = 0.f;
-  if (live) {
-    const float* q = query + (static_cast<size_t>(b) * n + i) * 3;
-    qx = q[0];
-    qy = q[1];
-    qz = q[2];
-  }
-  float best = __int_as_float(0x7f800000);  // +inf
-  int best_j = 0;
-  for (int base = 0; base < m; base += kTile) {
-    const int cnt = min(kTile, m - base);
-    __syncthreads();  // the previous tile is fully scanned
-    for (int k = threadIdx.x; k < cnt; k += kThreads) {
-      const float x = t[3 * (base + k)], y = t[3 * (base + k) + 1], z = t[3 * (base + k) + 2];
-      tile[k] = make_float4(x, y, z, rfnet::sq3(x, y, z));
-    }
-    __syncthreads();
-    if (live) {
-      for (int k = 0; k < cnt; ++k) {
-        const float4 p = tile[k];
-        const float cross = rfnet::dot3(p.x, p.y, p.z, qx, qy, qz);
-        const float e = __fsub_rn(p.w, __fmul_rn(2.f, cross));
-        if (e < best) {
-          best = e;
-          best_j = base + k;
-        }
-      }
-    }
-  }
-  if (live) {
-    const size_t o = static_cast<size_t>(b) * n + i;
-    dist[o] = fmaxf(__fadd_rn(best, rfnet::sq3(qx, qy, qz)), 0.f);
-    idx[o] = best_j;
-    coords[3 * o] = t[3 * best_j];
-    coords[3 * o + 1] = t[3 * best_j + 1];
-    coords[3 * o + 2] = t[3 * best_j + 2];
-  }
-}
-
-}  // namespace
+#include "nn_scan.cuh"
 
 extern "C" int rfnet_nn_coords(const void* query, const void* target, int b, int n,
                                int m, void* dist, void* idx, void* coords,
                                void* stream) {
-  if (b <= 0 || n <= 0 || m <= 0) return cudaErrorInvalidValue;
-  const dim3 grid((n + kThreads - 1) / kThreads, b);
-  nn_coords_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(query), static_cast<const float*>(target), n, m,
-      static_cast<float*>(dist), static_cast<int*>(idx), static_cast<float*>(coords));
-  return cudaGetLastError();
+  return rfnet::nn_scan_launch<true>(query, target, b, n, m, dist, idx, coords, stream);
 }

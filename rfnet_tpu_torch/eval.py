@@ -67,7 +67,7 @@ def load_state(checkpoint: str) -> RFNet:
     return model
 
 
-def resolve_device(name: str) -> torch.device:
+def resolve_device(name: str | torch.device) -> torch.device:
     device = torch.device(name)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(f"--device {name}: no CUDA device is available (pass --device cpu)")

@@ -37,6 +37,7 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C signature of each kernel entry point (all return int = cudaError_t)
 _SIGNATURES = {
     # xyz, b, n, npoint, idx_out, stream
@@ -45,6 +46,13 @@ _SIGNATURES = {
     "nn_coords": (_P, _P, _I, _I, _I, _P, _P, _P, _P),
     # query_sorted, target_sorted, b, n, m, dist_out, idx_out, stream
     "nn_dyn": (_P, _P, _I, _I, _I, _P, _P, _P),
+    # query, target, b, n, m, dist_out, idx_out, stream
+    "nn_dense": (_P, _P, _I, _I, _I, _P, _P, _P),
+    # x1, g, sorted idx (int32), order (int64), b, n, m, sp_out, sw_out, stream
+    "nn_grad": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P),
+    # xyz1, xyz2, b, n, m, multi_l, multi_r, remain_l, ratio_l, rowcost,
+    # remain_r, ratio_r (scratch), cost_out, stream
+    "emd_cost": (_P, _P, _I, _I, _I, _F, _F, _P, _P, _P, _P, _P, _P, _P),
 }
 
 # launches of each kernel since the last reset_launch_counts()

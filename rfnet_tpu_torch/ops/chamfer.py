@@ -1,24 +1,30 @@
-"""One-sided nearest-neighbour scans and the eval metrics built on them.
+"""Nearest-neighbour scans, the chamfer means with their gradients, and the
+eval metrics built on them.
 
-Port of the serving subset of ``rfnet_tpu/ops/chamfer.py``. Two kernels:
+Port of ``rfnet_tpu/ops/chamfer.py``. Three kernels:
 
 * K2 (``csrc/nn_coords.cu``) — the dense scan of ``e = |t|² − 2·q·t`` with
   strict ``<`` (first tie), returning ``max(e + |q|², 0)``, the argmin and
   the argmin's coordinates. It serves :func:`nearest_neighbor_coords` (the
-  merge layer) and :func:`nearest_neighbor`.
+  merge layer).
+* K4 (``csrc/nn_dense.cu``) — the same scan without the coordinates. It
+  serves :func:`nearest_neighbor` (``zero_groupnear``) and both directions of
+  :func:`nn_distance`.
 * K3 (``csrc/nn_dyn.cu``) — the exact early-exit scan over z-sorted clouds,
   with distances taken as sums of squared differences and the lowest sorted
-  index winning ties. It serves the eval metrics at every size. (The JAX
-  package takes its dense expansion below 2²⁵ pairs and on the CPU; near
-  d = 0 that expansion's rounding, magnified by the square root, moved the
-  converged model's per-cloud CD by 1e-4 relative against float64, while
+  index winning ties. It serves the eval metrics and the losses'
+  :func:`chamfer_means` / :func:`chamfer_means_pair` at every size and on
+  both devices, whose backward scatters through K5 (``ops/nn_grad.py``).
+  (The JAX package takes its dense expansion below 2²⁵ pairs and on the CPU;
+  near d = 0 that expansion's rounding, magnified by the square root, moved
+  the converged model's per-cloud CD by 1e-4 relative against float64, while
   sums of squares agree with float64 to 1e-7.)
 
 Each kernel's wrapper launches the kernel for CUDA tensors and runs its plain
 version (:func:`_one_sided`, :func:`_nn_sorted_plain`) for CPU tensors. The
 plain versions round after every elementwise op exactly as the kernels do,
-so the two agree bit for bit. Nothing here carries a gradient: callers
-recompute distances from the returned coordinates to differentiate.
+so the two agree bit for bit. The scans carry no gradient themselves; the
+autograd Functions here apply the reference's gradient formulas.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ from __future__ import annotations
 import torch
 
 from rfnet_tpu_torch import kernels
+from rfnet_tpu_torch.ops.nn_grad import index_add_rows, nn_grad_scatter
 
 # Elements of one (b, chunk, m) temporary in the plain scans.
 _PLAIN_CHUNK_ELEMS = 1 << 25
@@ -51,6 +58,15 @@ def _check_pair(query: torch.Tensor, target: torch.Tensor) -> None:
 def _sq3(x: torch.Tensor) -> torch.Tensor:
     """(x² + y²) + z² over the last axis, one rounding per op."""
     return x[..., 0] * x[..., 0] + x[..., 1] * x[..., 1] + x[..., 2] * x[..., 2]
+
+
+def _sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """float32 √x, correctly rounded on every device. PyTorch's CPU float32
+    sqrt is one ulp off on about 0.6 % of inputs while the card's is
+    correctly rounded, which set the chamfer gradients of the two devices
+    apart where the backward's terms cancel. The float64 root rounded once
+    to float32 is the correctly rounded float32 root."""
+    return torch.sqrt(x.double()).float()
 
 
 def _chunk(b: int, m: int) -> int:
@@ -115,19 +131,67 @@ def nearest_neighbor_coords(query: torch.Tensor, target: torch.Tensor):
     return d, coords
 
 
+def nn_dense(query: torch.Tensor, target: torch.Tensor):
+    """K4's wrapper: (dist² (b,n), idx (b,n) int32) of query into target."""
+    _check_pair(query, target)
+    query = query.detach().contiguous()
+    target = target.detach().contiguous()
+    if not query.is_cuda:
+        return _one_sided(query, target)
+    b, n, _ = query.shape
+    m = target.shape[1]
+    dist = torch.empty((b, n), dtype=torch.float32, device=query.device)
+    idx = torch.empty((b, n), dtype=torch.int32, device=query.device)
+    kernels.launch("nn_dense", query.device, query, target, b, n, m, dist, idx)
+    return dist, idx
+
+
 def nearest_neighbor(query: torch.Tensor, target: torch.Tensor):
     """One-sided dense NN: (dist² (b,n), idx (b,n) int32), first-index ties.
+    Gradient-free."""
+    return nn_dense(query, target)
 
-    On the card this is K2 with the coordinates left unused (the dense-only
-    kernel of the JAX package, ``nn_distance_pallas``, is not ported yet)."""
-    d, i, _ = nn_coords(query, target)
-    return d, i
+
+class _NNDistance(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, xyz1, xyz2):
+        d1, i1 = nn_dense(xyz1, xyz2)
+        d2, i2 = nn_dense(xyz2, xyz1)
+        ctx.save_for_backward(xyz1, xyz2, i1, i2)
+        ctx.mark_non_differentiable(i1, i2)
+        return d1, i1, d2, i2
+
+    @staticmethod
+    def backward(ctx, g1, _gi1, g2, _gi2):
+        # ∂dist1/∂xyz1 = 2 (xyz1 − xyz2[idx1]); ∂dist1/∂xyz2 = −(same), routed
+        # to the argmin rows (rfnet_tpu/ops/chamfer.py:_bwd)
+        xyz1, xyz2, i1, i2 = ctx.saved_tensors
+        diff1 = xyz1 - _gather_rows(xyz2, i1)
+        diff2 = xyz2 - _gather_rows(xyz1, i2)
+        d1 = 2.0 * g1[..., None] * diff1
+        d2 = 2.0 * g2[..., None] * diff2
+        d1 = d1 + index_add_rows(xyz1.shape, i2, -2.0 * g2[..., None] * diff2)
+        d2 = d2 + index_add_rows(xyz2.shape, i1, -2.0 * g1[..., None] * diff1)
+        return d1, d2
+
+
+def nn_distance(xyz1: torch.Tensor, xyz2: torch.Tensor):
+    """Squared NN distances + argmin indices in both directions:
+    (dist1 (b,n), idx1 (b,n), dist2 (b,m), idx2 (b,m)). Both scans are K4;
+    the distances carry the reference gradient, the indices none."""
+    return _NNDistance.apply(xyz1, xyz2)
 
 
 def sort_by_z_with_order(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Stable sort of each cloud by z: (sorted (b,n,3), order (b,n) int32)."""
     _, order = torch.sort(x[..., 2], dim=1, stable=True)
     return _gather_rows(x, order), order.to(torch.int32)
+
+
+def _unsort_rows(order: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """Undo a row permutation: out[order[k]] = rows[k]."""
+    index = order.long()[..., None].expand(-1, -1, rows.shape[-1])
+    return torch.empty_like(rows).scatter_(1, index, rows)
 
 
 def _nn_sorted_plain(qs: torch.Tensor, ts: torch.Tensor):
@@ -175,24 +239,82 @@ def nearest_neighbor_dyn(query: torch.Tensor, target: torch.Tensor):
     return d, i
 
 
-def _metric_dist(query: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
-    """One-sided NN distances² for the metrics, in sorted query order (means
-    need no unsort): both clouds z-sorted, then the early-exit scan."""
+def nn_sample_mean_one(query: torch.Tensor, target: torch.Tensor):
+    """Per-sample mean √ one-sided NN distance: (b,). The fidelity metric
+    (the eval CSV's ``emd`` column); gradient-free. Both clouds are z-sorted
+    (means need no unsort), then the early-exit scan."""
     _check_pair(query, target)
     qs, _ = sort_by_z_with_order(query.detach())
     ts, _ = sort_by_z_with_order(target.detach())
-    return nn_dyn(qs, ts)[0]
+    return _sqrt_rn(nn_dyn(qs, ts)[0]).mean(dim=1)
+
+
+def _inv_sqrt_scale(g: torch.Tensor, count: float, d: torch.Tensor) -> torch.Tensor:
+    """d(mean √d)/d(d) times the cotangent, with the safe-sqrt guard:
+    g / (count·2·max(√d, 1e-7))."""
+    return g / (count * 2.0 * torch.clamp(_sqrt_rn(d), min=1e-7))
+
+
+class _ChamferSampleMeans(torch.autograd.Function):
+    """Per-cloud (mean √NN-dist pcd1→pcd2 (b,), mean √ pcd2→pcd1 (b,)), all
+    in z-sorted space (``rfnet_tpu/ops/chamfer.py:_chamfer_means_dyn``):
+    means need no unsort; the backward applies the reference gradient in
+    sorted space, scatters the reverse-routed term through K5, and unsorts
+    the two gradients. A cloud that needs no gradient (a ground truth) costs
+    no scatter."""
+
+    @staticmethod
+    def forward(ctx, pcd1, pcd2):
+        _check_pair(pcd1, pcd2)
+        x1s, o1 = sort_by_z_with_order(pcd1.detach())
+        x2s, o2 = sort_by_z_with_order(pcd2.detach())
+        d1, i1 = nn_dyn(x1s, x2s)
+        d2, i2 = nn_dyn(x2s, x1s)
+        ctx.save_for_backward(x1s, o1, x2s, o2, d1, i1, d2, i2)
+        return _sqrt_rn(d1).mean(dim=1), _sqrt_rn(d2).mean(dim=1)
+
+    @staticmethod
+    def backward(ctx, g1, g2):
+        x1s, o1, x2s, o2, d1, i1, d2, i2 = ctx.saved_tensors
+        n, m = x1s.shape[1], x2s.shape[1]
+        gd1 = _inv_sqrt_scale(g1[:, None], float(n), d1)
+        gd2 = _inv_sqrt_scale(g2[:, None], float(m), d2)
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            sp2, sw2 = nn_grad_scatter(x2s, gd2, i2, n)
+            diff1 = x1s - _gather_rows(x2s, i1)
+            ga_s = 2.0 * gd1[..., None] * diff1 - 2.0 * sp2 + 2.0 * x1s * sw2[..., None]
+            ga = _unsort_rows(o1, ga_s)
+        if ctx.needs_input_grad[1]:
+            sp1, sw1 = nn_grad_scatter(x1s, gd1, i1, m)
+            diff2 = x2s - _gather_rows(x1s, i2)
+            gb_s = 2.0 * gd2[..., None] * diff2 - 2.0 * sp1 + 2.0 * x2s * sw1[..., None]
+            gb = _unsort_rows(o2, gb_s)
+        return ga, gb
 
 
 def chamfer_sample_means(pcd1: torch.Tensor, pcd2: torch.Tensor):
     """Per-sample mean √NN distance, both directions: ((b,), (b,)). The eval
-    CD metric; gradient-free. Both scans run through K3 on the card and its
-    plain version on the CPU, so the value does not depend on the device."""
-    return (torch.sqrt(_metric_dist(pcd1, pcd2)).mean(dim=1),
-            torch.sqrt(_metric_dist(pcd2, pcd1)).mean(dim=1))
+    CD metric, and the loss's chamfer means below; differentiable. Forward K3
+    both ways (its plain version on the CPU, so the value does not depend on
+    the device); backward K5 for each cloud that needs a gradient."""
+    return _ChamferSampleMeans.apply(pcd1, pcd2)
 
 
-def nn_sample_mean_one(query: torch.Tensor, target: torch.Tensor):
-    """Per-sample mean √ one-sided NN distance: (b,). The fidelity metric
-    (the eval CSV's ``emd`` column); gradient-free."""
-    return torch.sqrt(_metric_dist(query, target)).mean(dim=1)
+def chamfer_means(pcd1: torch.Tensor, pcd2: torch.Tensor):
+    """(mean √NN-dist both directions), differentiable: the chamfer_big
+    reduction without indices. One formula on both devices and at every
+    size (the JAX package takes its dense scan below 2²⁵ pairs)."""
+    m1, m2 = chamfer_sample_means(pcd1, pcd2)
+    return m1.mean(), m2.mean()
+
+
+def chamfer_means_pair(gt: torch.Tensor, out_a: torch.Tensor, out_b: torch.Tensor):
+    """(m_a1, m_a2, m_b1, m_b2) = chamfer_means(gt, out_a) ++ chamfer_means(gt,
+    out_b), with the two outputs stacked on the batch axis against gt
+    stacked twice, so each direction is one K3 launch and the outputs' backward
+    one K5 launch (``_chamfer_means_pair_dyn``). The outputs must have one
+    shape."""
+    b = gt.shape[0]
+    m1, m2 = chamfer_sample_means(torch.cat([gt, gt]), torch.cat([out_a, out_b]))
+    return m1[:b].mean(), m2[:b].mean(), m1[b:].mean(), m2[b:].mean()

@@ -94,3 +94,97 @@ def test_kernel_rejects_bad_input(cuda):
         chamfer.nn_coords(q.to(cuda).double(), t.to(cuda).double())
     with pytest.raises(ValueError):
         chamfer.nn_dyn(q.to(cuda), t)  # devices differ
+
+
+@pytest.mark.parametrize("b,n,m", [(2, 1024, 64), (1, 16384, 1024), (2, 70, 150), (1, 1, 1)])
+def test_nn_dense_kernel_equals_plain(cuda, b, n, m):
+    q, t = _clouds(5, (b, n, 3), (b, m, 3))
+    before = kernels.launches["nn_dense"]
+    kd, ki = chamfer.nn_dense(q.to(cuda), t.to(cuda))
+    assert kernels.launches["nn_dense"] == before + 1
+    pd, pi = chamfer.nn_dense(q, t)  # CPU: the plain version
+    # K2's scan without the coordinates: bit-equal, indices included
+    torch.testing.assert_close(kd.cpu(), pd, rtol=0, atol=0)
+    torch.testing.assert_close(ki.cpu(), pi, rtol=0, atol=0)
+
+
+def test_nn_dense_kernel_duplicate_targets_first_index(cuda):
+    q, t = _clouds(6, (1, 50, 3), (1, 90, 3))
+    _, ki = chamfer.nearest_neighbor(q.to(cuda), torch.cat([t, t], 1).to(cuda))
+    assert int(ki.max()) < 90
+
+
+def _scatter_cases(b, n, m, seed):
+    """Index layouts of the chamfer backward: banded (sorted argmins), all on
+    one target, uniformly random (tests/test_chamfer.py's three cases)."""
+    rng = np.random.RandomState(seed)
+    banded = np.clip((np.arange(n) * m // n)[None, :] + rng.randint(-9, 9, (b, n)), 0, m - 1)
+    return [banded.astype(np.int32), np.full((b, n), m - 1, np.int32),
+            rng.randint(0, m, (b, n)).astype(np.int32)]
+
+
+@pytest.mark.parametrize("b,n,m", [(2, 100, 140), (3, 2048, 2048), (1, 5000, 300)])
+def test_nn_grad_kernel_equals_plain(cuda, b, n, m):
+    from rfnet_tpu_torch.ops.nn_grad import nn_grad_scatter
+
+    rng = np.random.RandomState(7)
+    x1 = torch.from_numpy(rng.rand(b, n, 3).astype(np.float32))
+    g = torch.from_numpy(rng.randn(b, n).astype(np.float32))
+    for case, idx in enumerate(_scatter_cases(b, n, m, 8)):
+        idx = torch.from_numpy(idx)
+        before = kernels.launches["nn_grad"]
+        ksp, ksw = nn_grad_scatter(x1.to(cuda), g.to(cuda), idx.to(cuda), m)
+        assert kernels.launches["nn_grad"] == before + 1
+        psp, psw = nn_grad_scatter(x1, g, idx, m)  # CPU: index_add_ in query order
+        # the same sums in the same ascending order: bit-equal
+        torch.testing.assert_close(ksp.cpu(), psp, rtol=0, atol=0, msg=f"case {case}")
+        torch.testing.assert_close(ksw.cpu(), psw, rtol=0, atol=0, msg=f"case {case}")
+        # and both are the exact float64 sums to fp32 rounding
+        ref = torch.zeros(b, m, 4, dtype=torch.float64)
+        src = torch.cat([g[..., None] * x1, g[..., None]], -1).double()
+        ref.scatter_add_(1, idx.long()[..., None].expand(-1, -1, 4), src)
+        torch.testing.assert_close(ksp.cpu().double(), ref[..., :3], rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(ksw.cpu().double(), ref[..., 3], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("b,n,m", [(2, 256, 256), (1, 300, 130), (2, 96, 520), (1, 2100, 1500)])
+def test_emd_cost_kernel_matches_plain(cuda, b, n, m):
+    from rfnet_tpu_torch.ops.emd import approx_match_cost
+
+    x1, x2 = _clouds(9, (b, n, 3), (b, m, 3))
+    before = kernels.launches["emd_cost"]
+    got = approx_match_cost(x1.to(cuda), x2.to(cuda)).cpu()
+    assert kernels.launches["emd_cost"] == before + 1
+    # the same recurrence and d² formula, fp32 sums in another order: the JAX
+    # package's own bar for its kernel against its XLA recurrence
+    torch.testing.assert_close(got, approx_match_cost(x1, x2), rtol=2e-4, atol=0)
+
+
+def test_emd_cost_kernel_is_deterministic(cuda):
+    from rfnet_tpu_torch.ops.emd import approx_match_cost
+
+    x1, x2 = (x.to(cuda) for x in _clouds(10, (2, 1500, 3), (2, 1500, 3)))
+    torch.testing.assert_close(approx_match_cost(x1, x2), approx_match_cost(x1, x2),
+                               rtol=0, atol=0)
+
+
+def test_chamfer_backward_launches_k5_only_for_live_clouds(cuda):
+    """The ground truth takes no gradient, so each backward scatters once:
+    the pair loss and re_chamfer's folded slices each launch K5 one time.
+    The card's gradients equal the CPU's bit for bit: K3 and K5 equal their
+    plain versions, and the square roots are correctly rounded on both."""
+    from rfnet_tpu_torch import losses
+
+    gt, a, b = _clouds(11, (2, 512, 3), (2, 512, 3), (2, 512, 3))
+    grads = {}
+    for dev in ("cpu", cuda):
+        xa = a.clone().to(dev).requires_grad_()
+        xb = b.clone().to(dev).requires_grad_()
+        before = kernels.launches["nn_grad"]
+        m = chamfer.chamfer_means_pair(gt.to(dev), xa, xb)
+        (m[0] + 2 * m[1] + 3 * m[2] + 4 * m[3] + losses.re_chamfer(gt.to(dev), xa)).backward()
+        if dev != "cpu":
+            assert kernels.launches["nn_grad"] == before + 2
+        grads[str(dev)] = (xa.grad.cpu(), xb.grad.cpu())
+    for k, c in zip(grads[str(cuda)], grads["cpu"]):
+        torch.testing.assert_close(k, c, rtol=0, atol=0)

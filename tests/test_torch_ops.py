@@ -177,6 +177,15 @@ def test_eval_metrics_match_jax(rng, force_sorted):
         np.testing.assert_allclose(ours.numpy(), np.asarray(ref), rtol=1e-5)
 
 
+def test_chamfer_sqrt_is_correctly_rounded():
+    """The chamfer means' √ equals numpy's float32 √ (the IEEE root, correctly
+    rounded) bit for bit, over squared distances from 1e-12 to 100."""
+    rng = np.random.RandomState(0)
+    x = np.concatenate([rng.rand(1 << 18), 10.0 ** rng.uniform(-12, 2, 1 << 18)])
+    x = x.astype(np.float32)
+    np.testing.assert_array_equal(chamfer._sqrt_rn(torch.from_numpy(x)).numpy(), np.sqrt(x))
+
+
 def test_ops_reject_bad_input(rng):
     q = _t(rng.rand(1, 10, 3).astype(np.float32))
     with pytest.raises(ValueError):
@@ -188,16 +197,23 @@ def test_ops_reject_bad_input(rng):
 
 
 def test_port_never_imports_jax():
-    """Importing the port and every submodule loads neither JAX nor the JAX
-    package."""
+    """Importing the port and every submodule (the trainer's among them)
+    loads neither JAX nor the JAX package."""
     code = (
         "import sys, pkgutil, importlib, rfnet_tpu_torch\n"
-        "for m in pkgutil.walk_packages(rfnet_tpu_torch.__path__, 'rfnet_tpu_torch.'):\n"
-        "    importlib.import_module(m.name)\n"
+        "names = {m.name for m in pkgutil.walk_packages(rfnet_tpu_torch.__path__,"
+        " 'rfnet_tpu_torch.')}\n"
+        "for name in sorted(names):\n"
+        "    importlib.import_module(name)\n"
+        "need = {'rfnet_tpu_torch.' + m for m in ('train', 'losses', 'eval', 'ops.emd',"
+        " 'ops.nn_grad', 'ops.chamfer', 'data.dataset', 'kernels')}\n"
+        "assert need <= names, need - names\n"
         "import chip_smoke\n"
+        "sys.path.insert(0, 'tools')\n"
+        "import profile_torch_serving\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')"
         " or k == 'rfnet_tpu' or k.startswith('rfnet_tpu.'))\n"
-        "print(len(list(pkgutil.walk_packages(rfnet_tpu_torch.__path__))), bad)\n"
+        "print(len(names), bad)\n"
         "assert not bad, bad\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -1,16 +1,20 @@
 #!/usr/bin/env python3
-"""Where the port's serving time goes on one CUDA card.
+"""Where the port's serving or training time goes on one CUDA card.
 
     python3 tools/profile_torch_serving.py [--batch 4] [--iters 5]
+    python3 tools/profile_torch_serving.py --mode train --batch 32 [--iters 3]
 
-Runs the serving step of ``rfnet_tpu_torch.eval`` (full-width random-init
-RFNet forward + CD/fidelity metrics on synthetic clouds) under
-``torch.profiler`` and prints:
+Runs one step under ``torch.profiler``: in ``serve`` mode the serving step of
+``rfnet_tpu_torch.eval`` (full-width random-init RFNet forward + CD/fidelity
+metrics on synthetic clouds), in ``train`` mode ``rfnet_tpu_torch.train``'s
+train step (forward, ``losses.total_loss``, backward and the Adam update of
+the full-width random-init RFNet on synthetic clouds). It prints:
 
 * host wall time per step (to ``synchronize()``), summed device kernel time
   per step, and the device's idle share = 1 - kernel time / wall time;
-* device time by kernel group (the port's three kernels, matrix products,
-  sort, everything else) and the top kernels by device time.
+* device time by kernel group (the port's kernels, matrix products, sort,
+  index gathers and scatters, the optimizer, everything else) and the top
+  kernels by device time.
 
 Imports no JAX. Needs a CUDA card; fails without one.
 """
@@ -27,10 +31,16 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 GROUPS = (
     ("K1 fps", ("fps_kernel",)),
-    ("K2 nn_coords", ("nn_coords_kernel",)),
+    ("K2 nn_coords", ("nn_scan_kernel<true",)),
     ("K3 nn_dyn", ("nn_dyn_kernel",)),
+    ("K4 nn_dense", ("nn_scan_kernel<false",)),
+    ("K5 nn_grad", ("nn_grad_kernel",)),
+    ("K6 emd_cost", ("emd_fill_kernel", "emd_row_kernel", "emd_col_kernel",
+                     "emd_reduce_kernel")),
     ("matmul", ("gemm", "cutlass", "cublas", "sm90_xmma", "ampere")),
     ("sort", ("sort", "radix")),
+    ("index/scatter", ("index", "scatter", "gather")),
+    ("adam", ("adam", "multi_tensor")),
 )
 
 
@@ -44,6 +54,7 @@ def group_of(name: str) -> str:
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n", 1)[0])
+    p.add_argument("--mode", choices=("serve", "train"), default="serve")
     p.add_argument("--batch", type=int, default=4)
     p.add_argument("--iters", type=int, default=5)
     args = p.parse_args(argv)
@@ -63,16 +74,26 @@ def main(argv=None) -> int:
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip())
-    model = RFNet(generator=torch.Generator().manual_seed(0)).to(dev).eval()
-    complete, metrics = make_complete_fn(model)
     pairs = list(synthetic_pairs(args.batch, seed=1234))
     partial = torch.from_numpy(np.stack([q for _, q, _ in pairs])).to(dev)
     gt = torch.from_numpy(np.stack([g for _, _, g in pairs])).to(dev)
+    if args.mode == "train":
+        from rfnet_tpu_torch import train
 
-    def step():
-        out = complete(partial)
-        cd, emd = metrics(partial, out, gt)
-        return cd
+        config = train.TrainConfig(batch_size=args.batch)
+        state = train.create_state(config, dev)
+        n1 = 2 * config.n_seed
+
+        def step():
+            return train.train_step(state, partial, gt, n1=n1, n2=n1 * config.up_ratio)
+    else:
+        model = RFNet(generator=torch.Generator().manual_seed(0)).to(dev).eval()
+        complete, metrics = make_complete_fn(model)
+
+        def step():
+            out = complete(partial)
+            cd, emd = metrics(partial, out, gt)
+            return cd
 
     for _ in range(3):
         step()
@@ -87,7 +108,7 @@ def main(argv=None) -> int:
     # device_time_total is in microseconds, summed over the profiled steps
     dev_ms = {e.key: e.device_time_total / 1e3 / args.iters for e in events}
     busy = sum(dev_ms.values())
-    print(f"batch {args.batch}: wall {wall * 1e3:.3f} ms/step, device kernels "
+    print(f"{args.mode} batch {args.batch}: wall {wall * 1e3:.3f} ms/step, device kernels "
           f"{busy:.3f} ms/step, idle share {1 - busy / (wall * 1e3):.3f}")
     if busy == 0:
         raise SystemExit("profiler recorded no device time")
