@@ -9,7 +9,10 @@
    plain version and a one-call PyTorch yardstick with CUDA events: K1 FPS,
    K2 NN + coords and K3 early-exit NN at the serving path's shapes
    (batch 4); K1, K2, K3, K4 dense NN, K5 chamfer-backward scatter and K6
-   approx-EMD cost at the trainer's shapes (batch 32, eval batch 4);
+   approx-EMD cost at the trainer's shapes (batch 32, eval batch 4); K7
+   box-pruned NN and K8 best-first box-tile NN, bit for bit, at the losses'
+   and the metrics' shapes on completion-like and on random-init outputs,
+   each beside K3, and K5 with K8's Morton-order indices;
 3. serves 16 synthetic clouds in the PCN layout through
    ``rfnet_tpu_torch.eval.main`` on the card with a random-init full-width
    RFNet, checks the CSV, and checks the kernels that run launched; then
@@ -23,7 +26,15 @@
 5. runs one full-width train step at batch 2 on the card and on the CPU
    from the same weights and batch and holds the two to each other;
 6. times the full-width forward at batch 32;
-7. prints the per-kernel JSON line, then ``{"ok": true, "device": ...}``.
+7. drives the public op API (``rfnet_tpu_torch.ops``) on the card: the
+   pruned and the tile scan on unsorted clouds against the early-exit one,
+   grouping, interpolation, the auction assignment and ``emd_func`` against
+   their CPU run;
+8. flips the losses' sorted-space backend to "tile" (Morton sort + K8) and
+   holds one full-width train step at batch 32 and one eval batch of 4 (CD
+   and fidelity) to the "dyn" backend from the same weights and batch, with
+   exact launch counts, timing both;
+9. prints the per-kernel JSON line, then ``{"ok": true, "device": ...}``.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 It needs the rest of the repository: alone, or without a card, it fails.
@@ -222,13 +233,41 @@ def train_batch(b: int, seed: int):
             torch.from_numpy(np.stack([g for _, _, g in pairs])))
 
 
+def check_k5(name: str, x1, g, idx) -> dict:
+    """K5 against its CPU plain version (``index_add_`` in query order), bit
+    for bit, for one (x1, g, idx) of a chamfer backward; returns its row."""
+    import torch
+
+    from rfnet_tpu_torch.ops.nn_grad import _scatter_plain, nn_grad_scatter
+
+    dev = x1.device
+    b, nq = idx.shape
+    m = nq
+    ksp, ksw = nn_grad_scatter(x1, g, idx, m)
+    psp, psw = _scatter_plain(x1.cpu(), g.cpu(), idx.cpu(), m)  # index_add_ in order
+    torch.cuda.synchronize()
+    err = max(float((ksp.cpu() - psp).abs().max()), float((ksw.cpu() - psw).abs().max()))
+    check(torch.equal(ksp.cpu(), psp) and torch.equal(ksw.cpu(), psw),
+          f"K5 {name}: sums differ from the CPU plain version by {err}")
+    src = torch.cat([g[..., None] * x1, g[..., None]], -1).reshape(-1, 4)
+    flat = (idx.long() + m * torch.arange(b, device=dev)[:, None]).reshape(-1)
+    ms = cuda_ms(lambda: nn_grad_scatter(x1, g, idx, m), 20)
+    plain_ms = cuda_ms(lambda: _scatter_plain(x1, g, idx, m), 20)
+    lib_ms = cuda_ms(lambda: torch.zeros(b * m, 4, device=dev).index_add_(0, flat, src), 20)
+    b_ms, b_by = bound(8.0 * b * nq, 20.0 * b * nq + 16.0 * b * m)
+    print(f"K5 nn_grad {name} ({b},{nq})->{m}: equal to the CPU plain version bit for bit; "
+          f"kernel (with its index sort) {ms:.4f} ms, plain {plain_ms:.4f} ms, index_add_ "
+          f"{lib_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms)
+
+
 def check_train_kernels(dev, rows: dict) -> None:
     """Phase 2b: K1-K6 against their plain versions at the trainer's shapes
     (batch 32; the eval's batch 4 for K6), recorded into ``rows``."""
     import torch
 
     from rfnet_tpu_torch.ops import chamfer, emd, fps
-    from rfnet_tpu_torch.ops.nn_grad import _scatter_plain, nn_grad_scatter
 
     partial, gt = (x.to(dev) for x in train_batch(32, seed=11))
     gen = torch.Generator(device=dev).manual_seed(11)
@@ -293,29 +332,10 @@ def check_train_kernels(dev, rows: dict) -> None:
     g1 = 1.0 / (64 * 16384 * 2.0 * torch.clamp(torch.sqrt(d1), min=1e-7))
     d2, i2 = chamfer.nn_dyn(gss, ps)  # re_chamfer: gt slices onto predictions
     g2 = 1.0 / (256 * 2048 * 2.0 * torch.clamp(torch.sqrt(d2), min=1e-7))
-    cases = (("pair", gt2x, g1, i1), ("re_chamfer", gss, g2, i2),
-             ("pair all-to-one", gt2x, g1, torch.full_like(i1, 16383)))
-    for name, x1, g, idx in cases:
-        b, nq = idx.shape
-        m = nq
-        ksp, ksw = nn_grad_scatter(x1, g, idx, m)
-        psp, psw = _scatter_plain(x1.cpu(), g.cpu(), idx.cpu(), m)  # index_add_ in order
-        torch.cuda.synchronize()
-        err = max(float((ksp.cpu() - psp).abs().max()), float((ksw.cpu() - psw).abs().max()))
-        check(torch.equal(ksp.cpu(), psp) and torch.equal(ksw.cpu(), psw),
-              f"K5 {name}: sums differ from the CPU plain version by {err}")
-        src = torch.cat([g[..., None] * x1, g[..., None]], -1).reshape(-1, 4)
-        flat = (idx.long() + m * torch.arange(b, device=dev)[:, None]).reshape(-1)
-        ms = cuda_ms(lambda: nn_grad_scatter(x1, g, idx, m), 20)
-        plain_ms = cuda_ms(lambda: _scatter_plain(x1, g, idx, m), 20)
-        lib_ms = cuda_ms(lambda: torch.zeros(b * m, 4, device=dev).index_add_(0, flat, src), 20)
-        b_ms, b_by = bound(8.0 * b * nq, 20.0 * b * nq + 16.0 * b * m)
-        print(f"K5 nn_grad {name} ({b},{nq})->{m}: equal to the CPU plain version bit for bit; "
-              f"kernel (with its index sort) {ms:.4f} ms, plain {plain_ms:.4f} ms, index_add_ "
-              f"{lib_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
-        record(rows, "nn_grad", f"{name} ({b},{nq})->{m}",
-               dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                    library_ms=lib_ms), main=name == "pair")
+    for name, x1, g, idx in (("pair", gt2x, g1, i1), ("re_chamfer", gss, g2, i2),
+                             ("pair all-to-one", gt2x, g1, torch.full_like(i1, 16383))):
+        record(rows, "nn_grad", f"{name} ({idx.shape[0]},{idx.shape[1]})->{idx.shape[1]}",
+               check_k5(name, x1, g, idx), main=name == "pair")
 
     # K6: the eval's approx-EMD cost, 4 clouds of 16384 points
     x1, x2 = gt[:4].contiguous(), out_a[:4].contiguous()
@@ -339,9 +359,17 @@ def check_train_kernels(dev, rows: dict) -> None:
 
 # launches of each kernel in one train step and in one eval batch of 4
 STEP_LAUNCHES = {"fps": 3, "nn_coords": 3, "nn_dyn": 4, "nn_dense": 2, "nn_grad": 2,
-                 "emd_cost": 0}
+                 "emd_cost": 0, "nn_pruned": 0, "nn_tile": 0}
 EVAL_LAUNCHES = {"fps": 1, "nn_coords": 3, "nn_dyn": 2, "nn_dense": 0, "nn_grad": 0,
-                 "emd_cost": 1}
+                 "emd_cost": 1, "nn_pruned": 0, "nn_tile": 0}
+# launches in one serving batch of 4: forward, CD both ways, fidelity
+SERVE_LAUNCHES = {"fps": 1, "nn_coords": 3, "nn_dyn": 3, "nn_dense": 0, "nn_grad": 0,
+                  "emd_cost": 0, "nn_pruned": 0, "nn_tile": 0}
+
+
+def under_tile_backend(counts: dict) -> dict:
+    """The launch counts ``counts`` with K8 standing where K3 stood."""
+    return {**counts, "nn_tile": counts["nn_dyn"], "nn_dyn": 0}
 
 
 def expected_launches(steps: int, evals: int) -> dict:
@@ -544,8 +572,8 @@ def serve(dev):
     n_batches = 16 // B
     print(f"launches in the serving run: {counts} (expected fps {n_batches}, "
           f"nn_coords {3 * n_batches}, nn_dyn {3 * n_batches})")
-    check(counts == {"fps": n_batches, "nn_coords": 3 * n_batches, "nn_dyn": 3 * n_batches,
-                     "nn_dense": 0, "nn_grad": 0, "emd_cost": 0}, f"launch counts {counts}")
+    check(counts == {k: n_batches * v for k, v in SERVE_LAUNCHES.items()},
+          f"launch counts {counts}")
     avg = re.search(r"Average time: ([0-9.eE+-]+)", text)
     check(avg is not None, "no 'Average time' line")
     print(f"serving: Average time {float(avg.group(1)):.6f} s/cloud (batch {B}, models 12-15), "
@@ -595,6 +623,306 @@ def forward_throughput(dev):
     print(f"forward b32: {dt * 1e3:.3f} ms/batch, {32 / dt:.1f} clouds/s")
 
 
+def check_tiled(kernel: str, name: str, q, t, library: bool = True) -> dict:
+    """K7 or K8 on the clouds ``q`` -> ``t`` (sorted here as the kernel wants
+    them) against the full plain scan, bit for bit on distances and indices,
+    K7 also against K3; timed beside K3 on the same clouds z-sorted. The
+    bound counts the pairs the kernel's own rule cannot skip: for each query,
+    the points of every tile whose box is no farther than its final best."""
+    import torch
+
+    from rfnet_tpu_torch.ops import chamfer, chamfer_pruned, chamfer_tile
+
+    label, sort_fn, fn, tile_n, tile_m = {
+        "nn_pruned": ("K7", chamfer.sort_by_z_with_order, chamfer_pruned.nn_pruned,
+                      chamfer_pruned._TILE_N, chamfer_pruned._TILE_M),
+        "nn_tile": ("K8", chamfer_tile.sort_by_morton_with_order, chamfer_tile.nn_tile,
+                    chamfer_tile._TILE_N, chamfer_tile._TILE_M),
+    }[kernel]
+    qs, ts = sort_fn(q)[0], sort_fn(t)[0]
+    kd, ki = fn(qs, ts)
+    pd, pi = chamfer._nn_sorted_plain(qs, ts)
+    torch.cuda.synchronize()
+    err = float((kd - pd).abs().max())
+    check(torch.equal(kd, pd), f"{label} {name}: distances differ from the plain scan by {err}")
+    check(torch.equal(ki, pi), f"{label} {name}: indices differ from the plain scan at "
+          f"{int((ki != pi).sum())} of {ki.numel()} queries")
+    qz, tz = chamfer.sort_by_z_with_order(q)[0], chamfer.sort_by_z_with_order(t)[0]
+    if kernel == "nn_pruned":
+        dd, di = chamfer.nn_dyn(qs, ts)
+        check(torch.equal(kd, dd) and torch.equal(ki, di), f"K7 {name}: differs from K3")
+    b, nq, m = qs.shape[0], qs.shape[1], ts.shape[1]
+    tile_m = min(tile_m, m)
+    mt = -(-m // tile_m)
+    # tiles each block loaded, from the kernel's own count
+    _, _, visited = chamfer._nn_tiled(kernel, qs, ts, tile_n, tile_m)
+    loaded = float(visited.float().mean()) / mt
+    # pairs the rule cannot skip: point-to-box gap against the final best
+    boxes = chamfer._tile_boxes(ts, tile_m)
+    gap2 = torch.zeros((b, nq, mt), device=qs.device)
+    for a in range(3):
+        qa = qs[:, :, None, a]
+        g = torch.clamp(torch.maximum(boxes[:, None, :, a] - qa, qa - boxes[:, None, :, 3 + a]),
+                        min=0.0)
+        gap2 += g * g
+    sizes = torch.full((mt,), float(tile_m), device=qs.device)
+    sizes[-1] = m - (mt - 1) * tile_m
+    pairs = float(((gap2 <= kd[..., None]) * sizes).sum())
+    del gap2
+    ms = cuda_ms(lambda: fn(qs, ts), 20)
+    k3_ms = cuda_ms(lambda: chamfer.nn_dyn(qz, tz), 10)
+    plain_ms = cuda_ms(lambda: chamfer._nn_sorted_plain(qs, ts), 2, warmup=1)
+    lib_ms = cuda_ms(lambda: torch.cdist(qs, ts).min(-1), 5) if library else None
+    b_ms, b_by = bound(9.0 * pairs, 4.0 * b * (3 * nq + 3 * m + 6 * mt + 2 * nq))
+    lib = f"{lib_ms:.4f} ms" if library else "not run (matrix too large)"
+    print(f"{label} {kernel} {name} ({b},{nq},3)x({b},{m},3), tiles {tile_n}x{tile_m}: distances "
+          f"and indices bit-equal to the plain scan; tiles loaded {loaded:.4%}, pairs the rule "
+          f"cannot skip {pairs / (b * nq * m):.4%} of dense; kernel (with its boxes) {ms:.4f} ms, "
+          f"K3 on the same clouds {k3_ms:.4f} ms, plain {plain_ms:.4f} ms, cdist.min {lib}, "
+          f"bound {b_ms:.6f} ms ({b_by})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms, k3_ms=k3_ms, tiles_loaded=loaded,
+                needed_pairs_share=pairs / (b * nq * m))
+
+
+def check_tiled_kernels(dev, rows: dict) -> None:
+    """Phase 2c: K7 and K8 against the plain scan at the metrics' and the
+    losses' shapes, on completion-like clouds (the gt jittered by 0.005) and
+    on a random-init model's outputs, which lie far from the gt; and K5 with
+    K8's Morton-order indices."""
+    import torch
+
+    from rfnet_tpu_torch.models import RFNet
+    from rfnet_tpu_torch.ops import chamfer, chamfer_tile
+
+    partial, gt = (x.to(dev) for x in train_batch(32, seed=11))
+    gen = torch.Generator(device=dev).manual_seed(11)
+    out_a = gt + 0.005 * torch.randn(gt.shape, generator=gen, device=dev)
+    out_b = gt + 0.005 * torch.randn(gt.shape, generator=gen, device=dev)
+    model = RFNet(generator=torch.Generator().manual_seed(0)).to(dev).eval()
+    with torch.inference_mode():
+        res = model(partial)
+    rnd_a, rnd_b = res.out3.clone(), res.out4.clone()
+    gt2, pair_like = torch.cat([gt, gt], 0), torch.cat([out_a, out_b], 0)
+    pair_rnd = torch.cat([rnd_a, rnd_b], 0)
+    cases = [
+        ("completion-like out->gt", out_a[:4], gt[:4], True),
+        ("random-init out->gt", rnd_b[:4], gt[:4], True),
+        ("random-init gt->out", gt[:4], rnd_b[:4], True),
+        # cdist's (64, 16384, 16384) matrix of the pair would take 64 GiB
+        ("completion-like pair gt->out", gt2, pair_like, False),
+        ("completion-like pair out->gt", pair_like, gt2, False),
+        ("random-init pair gt->out", gt2, pair_rnd, False),
+        ("random-init pair out->gt", pair_rnd, gt2, False),
+        ("completion-like re_chamfer pred->gt", out_a.reshape(256, 2048, 3),
+         gt.reshape(256, 2048, 3), True),
+        ("random-init re_chamfer pred->gt", rnd_a.reshape(256, 2048, 3),
+         gt.reshape(256, 2048, 3), True),
+        ("ragged partial->out", partial[:3], out_a[:3], True),
+        ("op API gt->partial", gt[:4], partial[:4], True),
+    ]
+    # the shape whose numbers stand for the kernel in the JSON line: the one
+    # its main path gives it (K7 the op API, K8 the tile backend's eval batch)
+    main = {"nn_pruned": "op API gt->partial", "nn_tile": "random-init out->gt"}
+    for kernel in ("nn_pruned", "nn_tile"):
+        for name, q, t, library in cases:
+            record(rows, kernel, name, check_tiled(kernel, name, q.contiguous(), t.contiguous(),
+                                                   library),
+                   main=name == main[kernel])
+
+    # K5 with K8's argmins: Morton order, no longer near-monotone in the query
+    for name, outs in (("pair, Morton order, completion-like", pair_like),
+                       ("pair, Morton order, random-init", pair_rnd)):
+        gts, _ = chamfer_tile.sort_by_morton_with_order(gt2)
+        os_, _ = chamfer_tile.sort_by_morton_with_order(outs)
+        d1, i1 = chamfer_tile.nn_tile(gts, os_)
+        g1 = 1.0 / (64 * 16384 * 2.0 * torch.clamp(torch.sqrt(d1), min=1e-7))
+        record(rows, "nn_grad", f"{name} (64,16384)->16384", check_k5(name, gts, g1, i1))
+    gzs, _ = chamfer.sort_by_z_with_order(gt2)
+    ozs, _ = chamfer.sort_by_z_with_order(pair_rnd)
+    d1, i1 = chamfer.nn_dyn(gzs, ozs)
+    g1 = 1.0 / (64 * 16384 * 2.0 * torch.clamp(torch.sqrt(d1), min=1e-7))
+    record(rows, "nn_grad", "pair, z order, random-init (64,16384)->16384",
+           check_k5("pair, z order, random-init", gzs, g1, i1))
+
+
+def op_api(dev) -> dict:
+    """Phase 7: the public op API on the card; returns its launch counts.
+    The plain-PyTorch ops round after every elementwise op on both devices,
+    so the card's results are held to the CPU's exactly where they are
+    indices, and to 1e-6 where a sum's order may differ."""
+    import numpy as np
+    import torch
+
+    from rfnet_tpu_torch import kernels, losses, ops
+
+    cpu = torch.device("cpu")
+    partial, gt = train_batch(4, seed=41)
+    q, t = gt.to(dev), partial.to(dev)  # (4,16384,3) queries into (4,3000,3)
+    kernels.reset_launch_counts()
+    dp, ip = ops.nearest_neighbor_pruned(q, t)
+    dt, it = ops.nearest_neighbor_tile(q, t)
+    torch.cuda.synchronize()
+    counts = dict(kernels.launches)
+    check(counts["nn_pruned"] == 1 and counts["nn_tile"] == 1, f"op API launch counts {counts}")
+    from rfnet_tpu_torch.ops.chamfer import _gather_rows, nearest_neighbor_dyn
+
+    dd, _ = nearest_neighbor_dyn(q, t)
+    for name, d, i in (("pruned", dp, ip), ("tile", dt, it)):
+        check(torch.equal(d, dd), f"ops.nearest_neighbor_{name}: distances differ from "
+              f"nearest_neighbor_dyn by {float((d - dd).abs().max())}")
+        picked = (q - _gather_rows(t, i)).square().sum(-1)
+        check(bool(torch.allclose(picked, dd, rtol=1e-5, atol=1e-9)),
+              f"ops.nearest_neighbor_{name}: an index does not pick a nearest target")
+    print("op API: nearest_neighbor_pruned and nearest_neighbor_tile (4,16384,3)x(4,3000,3) "
+          "unsorted: distances bit-equal to nearest_neighbor_dyn, every index a nearest target")
+
+    # grouping and interpolation: 256 FPS centroids of the 3000-point cloud
+    _, cen = ops.sampling(256, t, "f")
+    ridx, rpts = ops.sampling(256, t, "r", generator=torch.Generator(device=dev).manual_seed(3))
+    check(bool((ridx == ridx[:1]).all()) and len(set(ridx[0].tolist())) == 256
+          and torch.equal(rpts, ops.gather_point(t, ridx)), "sampling('r') contract")
+    tc, cc = t.cpu(), cen.cpu()
+    for got, want, what in zip(ops.query_ball_point(0.1, 32, t, cen),
+                               ops.query_ball_point(0.1, 32, tc, cc), ("idx", "pts_cnt")):
+        check(torch.equal(got.cpu(), want), f"query_ball_point {what}: card differs from CPU")
+    bidx, _ = ops.query_ball_point(0.1, 32, t, cen)
+    check(torch.equal(ops.group_point(t, bidx).cpu(), ops.group_point(tc, bidx.cpu())),
+          "group_point: card differs from CPU")
+    for got, want, what in zip(ops.knn_point(16, t, cen), ops.knn_point(16, tc, cc),
+                               ("val", "idx")):
+        check(torch.equal(got.cpu(), want), f"knn_point {what}: card differs from CPU")
+    d3, i3 = ops.three_nn(t, cen)
+    d3c, i3c = ops.three_nn(tc, cc)
+    check(torch.equal(d3.cpu(), d3c) and torch.equal(i3.cpu(), i3c), "three_nn: card vs CPU")
+    w = 1.0 / (d3 + 1e-8)
+    w = w / w.sum(-1, keepdim=True)
+    feats = torch.from_numpy(np.random.RandomState(5).rand(4, 256, 8).astype(np.float32))
+    res = []
+    for d in (dev, cpu):
+        f = feats.to(d).requires_grad_()
+        out = ops.three_interpolate(f, i3.to(d), w.to(d))
+        out.square().sum().backward()
+        res.append((out.detach().cpu(), f.grad.cpu()))
+    check(bool(torch.allclose(res[0][0], res[1][0], rtol=1e-6, atol=1e-7))
+          and bool(torch.allclose(res[0][1], res[1][1], rtol=1e-5, atol=1e-6)),
+          "three_interpolate: card differs from CPU")
+    print("op API: sampling('r'), query_ball_point, group_point, knn_point, three_nn equal "
+          "their CPU run exactly; three_interpolate and its gradient within 1e-5")
+
+    # the auction at n = 1024 against its CPU run, then timed at the 4096 cap
+    a, b = (torch.from_numpy(np.random.RandomState(s).rand(2, 1024, 3).astype(np.float32))
+            for s in (6, 7))
+    t0 = time.time()
+    ml, mr = ops.auction_match(a.to(dev), b.to(dev))
+    torch.cuda.synchronize()
+    t_card = time.time() - t0
+    t0 = time.time()
+    mlc, _ = ops.auction_match(a, b)
+    t_cpu = time.time() - t0
+    iota = torch.arange(1024, device=dev).expand(2, 1024)
+    check(torch.equal(ml.long().sort(1).values, iota)
+          and torch.equal(mr.long().sort(1).values, iota)
+          and torch.equal(torch.gather(mr.long(), 1, ml.long()), iota),
+          "auction_match: matchl/matchr are not inverse permutations")
+    cost = [float((a - _gather_rows(b, m)).norm(dim=-1).sum()) for m in (ml.cpu(), mlc)]
+    check(abs(cost[0] - cost[1]) <= 1e-5 * cost[1], f"auction_match: card cost {cost[0]} vs "
+          f"CPU {cost[1]}")
+    e_card, e_cpu = float(losses.emd_func(a.to(dev), b.to(dev))), float(losses.emd_func(a, b))
+    check(abs(e_card - e_cpu) <= 1e-5 * e_cpu, f"emd_func: card {e_card} vs CPU {e_cpu}")
+    big = [torch.from_numpy(np.random.RandomState(s).rand(4, 4096, 3).astype(np.float32)).to(dev)
+           for s in (8, 9)]
+    t0 = time.time()
+    ml4, _ = ops.auction_match(*big)
+    torch.cuda.synchronize()
+    t_big = time.time() - t0
+    check(torch.equal(ml4.long().sort(1).values, torch.arange(4096, device=dev).expand(4, 4096)),
+          "auction_match (4,4096,3): matchl is not a permutation")
+    print(f"op API: auction_match (2,1024,3) permutations, assignment "
+          f"{'identical to' if torch.equal(ml.cpu(), mlc) else 'as cheap as'} the CPU run's "
+          f"(cost {cost[0]:.6f}), {t_card:.3f} s on the card, {t_cpu:.3f} s on the CPU; emd_func "
+          f"{e_card:.8f} vs CPU {e_cpu:.8f}; auction_match (4,4096,3) {t_big:.3f} s on the card")
+    return counts
+
+
+def tile_backend(dev) -> dict:
+    """Phase 8: one full-width train step at batch 32 and one eval batch of
+    4 (forward, CD, fidelity) under the "tile" backend against the "dyn"
+    backend, from the same weights and batch. Loss terms and metrics agree
+    within 1e-5 relative and the gradients within 1e-4 relative L2 (the
+    distances are bit-equal; the means sum them in another order); launch
+    counts are exact, K8 standing where K3 stood. Returns the tile run's
+    launch counts."""
+    import torch
+
+    from rfnet_tpu_torch import kernels, train
+    from rfnet_tpu_torch.eval import make_complete_fn
+    from rfnet_tpu_torch.ops import chamfer
+
+    partial, gt = (x.to(dev) for x in train_batch(32, seed=21))
+    p4, g4 = partial[:4].contiguous(), gt[:4].contiguous()
+    config = train.TrainConfig(batch_size=32)
+    n1, n2 = 2 * config.n_seed, 2 * config.n_seed * config.up_ratio
+    check(chamfer._NN_SORTED_BACKEND == "dyn", "the default backend is not dyn")
+    res = {}
+    try:
+        for backend in ("dyn", "tile"):
+            chamfer._NN_SORTED_BACKEND = backend
+            state = train.create_state(config, dev)
+            # the eval first: after a step the two backends' weights differ
+            # wherever Adam's first update takes the sign of a tiny gradient
+            complete, metrics = make_complete_fn(state.model)
+            kernels.reset_launch_counts()
+            cd, fid = metrics(p4, complete(p4), g4)
+            torch.cuda.synchronize(dev)
+            eval_counts = dict(kernels.launches)
+            kernels.reset_launch_counts()
+            lb, _ = train.train_step(state, partial, gt, n1=n1, n2=n2)
+            torch.cuda.synchronize(dev)
+            step_counts = dict(kernels.launches)
+            terms = {k: float(v) for k, v in lb._asdict().items()}
+            grads = {n: p.grad.clone() for n, p in state.model.named_parameters()
+                     if p.grad is not None}
+
+            def timed(fn):
+                fn()
+                torch.cuda.synchronize(dev)
+                t0 = time.time()
+                for _ in range(3):
+                    fn()
+                torch.cuda.synchronize(dev)
+                return (time.time() - t0) / 3 * 1e3
+
+            step_ms = timed(lambda: train.train_step(state, partial, gt, n1=n1, n2=n2))
+            eval_ms = timed(lambda: metrics(p4, complete(p4), g4))
+            res[backend] = (terms, grads, cd.cpu(), fid.cpu(), step_counts, eval_counts,
+                            step_ms, eval_ms)
+    finally:
+        chamfer._NN_SORTED_BACKEND = "dyn"
+    (lt, gd, cdd, fd, sc_d, ec_d, sms_d, ems_d) = res["dyn"]
+    (tt, gtile, cdt, ft, sc_t, ec_t, sms_t, ems_t) = res["tile"]
+    check(sc_d == STEP_LAUNCHES and ec_d == SERVE_LAUNCHES, f"dyn launch counts {sc_d} {ec_d}")
+    check(sc_t == under_tile_backend(STEP_LAUNCHES) and ec_t == under_tile_backend(SERVE_LAUNCHES),
+          f"tile launch counts {sc_t} {ec_t}")
+    worst = 0.0
+    for k in lt:
+        rel = abs(lt[k] - tt[k]) / max(abs(lt[k]), 1e-30)
+        check(rel <= 1e-5, f"{k}: dyn {lt[k]} tile {tt[k]}")
+        worst = max(worst, rel)
+    num = sum(float((gd[n].double() - gtile[n].double()).square().sum()) for n in gd)
+    den = sum(float(gd[n].double().square().sum()) for n in gd)
+    grel = math.sqrt(num / den)
+    check(set(gd) == set(gtile) and grel <= 1e-4, f"gradients differ by {grel:.3g} relative L2")
+    mrel = max(float(((cdd - cdt).abs() / cdd.abs()).max()), float(((fd - ft).abs() / fd).max()))
+    check(mrel <= 1e-5, f"eval metrics differ by {mrel:.3g} relative")
+    print(f"tile backend, train step b32: loss terms within {worst:.3g} relative of dyn, "
+          f"gradients {grel:.3g} relative L2; launches {sc_t}; step {sms_t:.3f} ms "
+          f"({32 / sms_t * 1e3:.1f} clouds/s) vs dyn {sms_d:.3f} ms ({32 / sms_d * 1e3:.1f})")
+    print(f"tile backend, eval batch of 4 (forward + CD + fidelity): metrics within {mrel:.3g} "
+          f"relative of dyn; launches {ec_t}; {ems_t:.3f} ms vs dyn {ems_d:.3f} ms")
+    return {k: sc_t[k] + ec_t[k] for k in sc_t}
+
+
 def main() -> int:
     import torch
 
@@ -623,10 +951,13 @@ def main() -> int:
     try:
         rows = check_kernels(dev)
         check_train_kernels(dev, rows)
+        check_tiled_kernels(dev, rows)
         serve_counts = serve(dev)
         train_counts = train_run(dev)
         cross_check_step(dev)
         forward_throughput(dev)
+        ops_counts = op_api(dev)
+        tile_counts = tile_backend(dev)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 
@@ -635,8 +966,13 @@ def main() -> int:
            "nn_dyn": ("nn_dyn.cu", "rfnet_tpu/ops/pallas/chamfer_dyn.py:170", "serve"),
            "nn_dense": ("nn_dense.cu", "rfnet_tpu/ops/pallas/chamfer.py:222", "train"),
            "nn_grad": ("nn_grad.cu", "rfnet_tpu/ops/pallas/nn_grad.py:81", "train"),
-           "emd_cost": ("emd_cost.cu", "rfnet_tpu/ops/pallas/emd.py:347", "train")}
-    by_path = {"serve": serve_counts, "train": train_counts}
+           "emd_cost": ("emd_cost.cu", "rfnet_tpu/ops/pallas/emd.py:347", "train"),
+           "nn_pruned": ("nn_pruned.cu", "rfnet_tpu/ops/pallas/chamfer_pruned.py:128", "ops"),
+           "nn_tile": ("nn_tile.cu", "rfnet_tpu/ops/pallas/chamfer_tile.py:214", "tile")}
+    by_path = {"serve": serve_counts, "train": train_counts, "ops": ops_counts,
+               "tile": tile_counts}
+    for name, (_, _, path) in src.items():
+        check(by_path[path][name] > 0, f"{name} was not launched on the {path} path")
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": "rfnet_tpu_torch/csrc/" + file,
          "replaces": replaces, "launches": by_path[path][name],

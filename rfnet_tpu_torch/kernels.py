@@ -53,6 +53,10 @@ _SIGNATURES = {
     # xyz1, xyz2, b, n, m, multi_l, multi_r, remain_l, ratio_l, rowcost,
     # remain_r, ratio_r (scratch), cost_out, stream
     "emd_cost": (_P, _P, _I, _I, _I, _F, _F, _P, _P, _P, _P, _P, _P, _P),
+    # query_sorted, target_sorted, tile boxes, b, n, m, tile_n, tile_m,
+    # dist_out, idx_out, tiles loaded per block out, stream
+    "nn_pruned": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P),
+    "nn_tile": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P),
 }
 
 # launches of each kernel since the last reset_launch_counts()

@@ -4,6 +4,7 @@ Port of ``rfnet_tpu/losses.py`` (the reference's ``vv_recon.py:365-500``):
 
 * ``chamfer_big`` = ½(mean√dist1 + mean√dist2), the mean-of-roots CD;
 * ``fidelity_loss`` = one-sided mean√dist, partial → output;
+* ``emd_func`` = radius-normalised EMD of the auction's assignment;
 * ``earth_mover`` = approx-EMD cost / num_points (train path, with
   gradient); ``earth_mover_eval`` the same value with no gradient (K6);
 * ``re_chamfer`` = CD over 8 contiguous equal index slices, folded into the
@@ -18,13 +19,16 @@ from typing import NamedTuple
 
 import torch
 
+from rfnet_tpu_torch.ops.auction import auction_match
 from rfnet_tpu_torch.ops.chamfer import (
+    _sqrt_rn,
     chamfer_means,
     chamfer_means_pair,
     nearest_neighbor,
     nn_distance,
 )
 from rfnet_tpu_torch.ops.emd import approx_match_cost, approx_match_cost_diff
+from rfnet_tpu_torch.ops.fps import gather_point
 
 
 class _SafeSqrt(torch.autograd.Function):
@@ -33,11 +37,14 @@ class _SafeSqrt(torch.autograd.Function):
     Autograd forms the gradient of √(‖a−b‖²) as 2(a−b) × 1/(2√d²), which is
     0 × inf = NaN where the squared distance is exactly 0 (the distance scans
     clamp tiny negatives to 0); capping the sqrt's derivative keeps the
-    composite the right unit vector and the forward untouched."""
+    composite the right unit vector and the forward untouched. The root is
+    the correctly rounded one on every device (``ops/chamfer.py:_sqrt_rn``),
+    so ``chamfer_big`` and ``fidelity_loss`` do not differ between the card
+    and the CPU by the CPU root's stray ulp."""
 
     @staticmethod
     def forward(ctx, x):
-        y = torch.sqrt(x)
+        y = _sqrt_rn(x)
         ctx.save_for_backward(y)
         return y
 
@@ -79,6 +86,17 @@ def earth_mover_eval(pcd1: torch.Tensor, pcd2: torch.Tensor) -> torch.Tensor:
     """`earth_mover` for no-gradient contexts, through the plan-free cost."""
     _equal_sizes(pcd1, pcd2)
     return torch.mean(approx_match_cost(pcd1, pcd2) / float(pcd1.shape[1]))
+
+
+def emd_func(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
+    """Radius-normalised EMD of the auction's one-to-one assignment. Off the
+    train and eval paths, as in the reference."""
+    matchl, _ = auction_match(pred, gt)
+    matched = gather_point(gt, matchl)
+    dist = _sqrt_rn(torch.sum((pred - matched) ** 2, dim=-1)).mean(dim=-1)
+    cens = pred.mean(dim=1, keepdim=True)
+    radius = _sqrt_rn(torch.sum((pred - cens) ** 2, dim=-1).amax(dim=-1))
+    return torch.mean(dist / radius)
 
 
 def re_chamfer(gt: torch.Tensor, pred: torch.Tensor, part: int = 8) -> torch.Tensor:

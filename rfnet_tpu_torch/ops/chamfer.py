@@ -1,7 +1,9 @@
 """Nearest-neighbour scans, the chamfer means with their gradients, and the
 eval metrics built on them.
 
-Port of ``rfnet_tpu/ops/chamfer.py``. Three kernels:
+Port of ``rfnet_tpu/ops/chamfer.py``. Three kernels here, and two more
+exact sorted-space scans in ``ops/chamfer_pruned.py`` (K7) and
+``ops/chamfer_tile.py`` (K8), which share :func:`_nn_sorted_plain` with K3:
 
 * K2 (``csrc/nn_coords.cu``) — the dense scan of ``e = |t|² − 2·q·t`` with
   strict ``<`` (first tie), returning ``max(e + |q|², 0)``, the argmin and
@@ -195,8 +197,9 @@ def _unsort_rows(order: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
 
 
 def _nn_sorted_plain(qs: torch.Tensor, ts: torch.Tensor):
-    """Plain version of K3: every pair's ((dx² + dy²) + dz²), first index of
-    the least. Needs no sorting; the kernel needs it only to exit early."""
+    """Plain version of K3, K7 and K8: every pair's ((dx² + dy²) + dz²), first
+    index of the least. Needs no sorting; the kernels need it only to skip
+    work."""
     b, n, _ = qs.shape
     step = _chunk(b, ts.shape[1])
     dist, idx = [], []
@@ -227,26 +230,96 @@ def nn_dyn(query_sorted: torch.Tensor, target_sorted: torch.Tensor):
     return dist, idx
 
 
-def nearest_neighbor_dyn(query: torch.Tensor, target: torch.Tensor):
-    """One-sided NN through the early-exit scan, sorts included:
-    (dist² (b,n), idx (b,n) int32), both in the original orders."""
-    qs, q_ord = sort_by_z_with_order(query.detach())
-    ts, t_ord = sort_by_z_with_order(target.detach())
-    d_s, i_s = nn_dyn(qs, ts)
+def _tile_boxes(ts: torch.Tensor, tile_m: int) -> torch.Tensor:
+    """(b, mt, 6) boxes [lo x y z, hi x y z] over each run of ``tile_m``
+    consecutive points of ``ts`` (b, m, 3); the ragged last run counts its
+    real points only. The glue K7 and K8 take beside the sorted target."""
+    b, m, _ = ts.shape
+    mt = -(-m // tile_m)
+    pad = (0, 0, 0, mt * tile_m - m)
+    lo = torch.nn.functional.pad(ts, pad, value=float("inf")).view(b, mt, tile_m, 3).amin(2)
+    hi = torch.nn.functional.pad(ts, pad, value=float("-inf")).view(b, mt, tile_m, 3).amax(2)
+    return torch.cat([lo, hi], dim=-1).contiguous()
+
+
+def _nn_tiled(name: str, query_sorted: torch.Tensor, target_sorted: torch.Tensor,
+              tile_n: int, tile_m: int):
+    """The wrapper body K7 (``nn_pruned``) and K8 (``nn_tile``) share: the
+    plain full scan for CPU tensors, the kernel ``name`` with its tile boxes
+    for CUDA tensors. Returns (dist², idx, visited): ``visited`` (b, query
+    tiles) int32 counts the target tiles each block loaded (every tile on
+    the CPU, which prunes nothing)."""
+    _check_pair(query_sorted, target_sorted)
+    qs = query_sorted.detach().contiguous()
+    ts = target_sorted.detach().contiguous()
+    b, n, _ = qs.shape
+    m = ts.shape[1]
+    tile_n = min(tile_n, -(-n // 32) * 32)
+    tile_m = min(tile_m, m)
+    nt, mt = -(-n // tile_n), -(-m // tile_m)
+    if not qs.is_cuda:
+        return (*_nn_sorted_plain(qs, ts), torch.full((b, nt), mt, dtype=torch.int32))
+    boxes = _tile_boxes(ts, tile_m)
+    dist = torch.empty((b, n), dtype=torch.float32, device=qs.device)
+    idx = torch.empty((b, n), dtype=torch.int32, device=qs.device)
+    visited = torch.empty((b, nt), dtype=torch.int32, device=qs.device)
+    kernels.launch(name, qs.device, qs, ts, boxes, b, n, m, tile_n, tile_m, dist, idx, visited)
+    return dist, idx, visited
+
+
+def _nn_sorted_unsorted(query, target, sort_fn, nn_fn):
+    """Sort both clouds with ``sort_fn``, run the sorted-space scan ``nn_fn``,
+    and map (dist², idx) back to the callers' orders. Gradient-free."""
+    qs, q_ord = sort_fn(query.detach())
+    ts, t_ord = sort_fn(target.detach())
+    d_s, i_s = nn_fn(qs, ts)
     q_ord = q_ord.long()
     d = torch.empty_like(d_s).scatter_(1, q_ord, d_s)
     i = torch.empty_like(i_s).scatter_(1, q_ord, torch.gather(t_ord, 1, i_s.long()))
     return d, i
 
 
+def nearest_neighbor_dyn(query: torch.Tensor, target: torch.Tensor):
+    """One-sided NN through the early-exit scan, sorts included:
+    (dist² (b,n), idx (b,n) int32), both in the original orders."""
+    return _nn_sorted_unsorted(query, target, sort_by_z_with_order, nn_dyn)
+
+
+def nearest_neighbor_tile(query: torch.Tensor, target: torch.Tensor):
+    """One-sided NN through the best-first box-tile scan K8, Morton sorts
+    included: (dist² (b,n), idx (b,n) int32) in the original orders. Exact:
+    distances bit-equal to :func:`nearest_neighbor_dyn`, the lowest index in
+    Morton-sorted space winning ties."""
+    from rfnet_tpu_torch.ops.chamfer_tile import nn_tile, sort_by_morton_with_order
+
+    return _nn_sorted_unsorted(query, target, sort_by_morton_with_order, nn_tile)
+
+
+# Which sorted-space scan the losses and the eval metrics use: "dyn" = z sort
+# + K3's slab walk, "tile" = Morton sort + K8's best-first box-tile walk. Both
+# are exact; they differ in how much of the scan the data lets them skip. Read
+# at call time, so a benchmark can flip it. The backward takes any index.
+_NN_SORTED_BACKEND = "dyn"
+
+
+def _sorted_nn_fns():
+    """(sort function, sorted-space scan) of the current backend."""
+    if _NN_SORTED_BACKEND == "tile":
+        from rfnet_tpu_torch.ops.chamfer_tile import nn_tile, sort_by_morton_with_order
+
+        return sort_by_morton_with_order, nn_tile
+    return sort_by_z_with_order, nn_dyn
+
+
 def nn_sample_mean_one(query: torch.Tensor, target: torch.Tensor):
     """Per-sample mean √ one-sided NN distance: (b,). The fidelity metric
-    (the eval CSV's ``emd`` column); gradient-free. Both clouds are z-sorted
-    (means need no unsort), then the early-exit scan."""
+    (the eval CSV's ``emd`` column); gradient-free. Both clouds are sorted
+    (means need no unsort), then the backend's sorted-space scan."""
     _check_pair(query, target)
-    qs, _ = sort_by_z_with_order(query.detach())
-    ts, _ = sort_by_z_with_order(target.detach())
-    return _sqrt_rn(nn_dyn(qs, ts)[0]).mean(dim=1)
+    sort_fn, nn_fn = _sorted_nn_fns()
+    qs, _ = sort_fn(query.detach())
+    ts, _ = sort_fn(target.detach())
+    return _sqrt_rn(nn_fn(qs, ts)[0]).mean(dim=1)
 
 
 def _inv_sqrt_scale(g: torch.Tensor, count: float, d: torch.Tensor) -> torch.Tensor:
@@ -257,19 +330,20 @@ def _inv_sqrt_scale(g: torch.Tensor, count: float, d: torch.Tensor) -> torch.Ten
 
 class _ChamferSampleMeans(torch.autograd.Function):
     """Per-cloud (mean √NN-dist pcd1→pcd2 (b,), mean √ pcd2→pcd1 (b,)), all
-    in z-sorted space (``rfnet_tpu/ops/chamfer.py:_chamfer_means_dyn``):
-    means need no unsort; the backward applies the reference gradient in
-    sorted space, scatters the reverse-routed term through K5, and unsorts
-    the two gradients. A cloud that needs no gradient (a ground truth) costs
-    no scatter."""
+    in sorted space (z or Morton, as ``_NN_SORTED_BACKEND`` says;
+    ``rfnet_tpu/ops/chamfer.py:_chamfer_means_dyn``): means need no unsort;
+    the backward applies the reference gradient in sorted space, scatters
+    the reverse-routed term through K5, and unsorts the two gradients. A
+    cloud that needs no gradient (a ground truth) costs no scatter."""
 
     @staticmethod
     def forward(ctx, pcd1, pcd2):
         _check_pair(pcd1, pcd2)
-        x1s, o1 = sort_by_z_with_order(pcd1.detach())
-        x2s, o2 = sort_by_z_with_order(pcd2.detach())
-        d1, i1 = nn_dyn(x1s, x2s)
-        d2, i2 = nn_dyn(x2s, x1s)
+        sort_fn, nn_fn = _sorted_nn_fns()
+        x1s, o1 = sort_fn(pcd1.detach())
+        x2s, o2 = sort_fn(pcd2.detach())
+        d1, i1 = nn_fn(x1s, x2s)
+        d2, i2 = nn_fn(x2s, x1s)
         ctx.save_for_backward(x1s, o1, x2s, o2, d1, i1, d2, i2)
         return _sqrt_rn(d1).mean(dim=1), _sqrt_rn(d2).mean(dim=1)
 
@@ -295,9 +369,10 @@ class _ChamferSampleMeans(torch.autograd.Function):
 
 def chamfer_sample_means(pcd1: torch.Tensor, pcd2: torch.Tensor):
     """Per-sample mean √NN distance, both directions: ((b,), (b,)). The eval
-    CD metric, and the loss's chamfer means below; differentiable. Forward K3
-    both ways (its plain version on the CPU, so the value does not depend on
-    the device); backward K5 for each cloud that needs a gradient."""
+    CD metric, and the loss's chamfer means below; differentiable. Forward the
+    backend's scan (K3, or K8) both ways (its plain version on the CPU, so the
+    value does not depend on the device); backward K5 for each cloud that
+    needs a gradient."""
     return _ChamferSampleMeans.apply(pcd1, pcd2)
 
 
@@ -312,9 +387,9 @@ def chamfer_means(pcd1: torch.Tensor, pcd2: torch.Tensor):
 def chamfer_means_pair(gt: torch.Tensor, out_a: torch.Tensor, out_b: torch.Tensor):
     """(m_a1, m_a2, m_b1, m_b2) = chamfer_means(gt, out_a) ++ chamfer_means(gt,
     out_b), with the two outputs stacked on the batch axis against gt
-    stacked twice, so each direction is one K3 launch and the outputs' backward
-    one K5 launch (``_chamfer_means_pair_dyn``). The outputs must have one
-    shape."""
+    stacked twice, so each direction is one launch of the backend's scan and
+    the outputs' backward one K5 launch (``_chamfer_means_pair_dyn``). The
+    outputs must have one shape."""
     b = gt.shape[0]
     m1, m2 = chamfer_sample_means(torch.cat([gt, gt]), torch.cat([out_a, out_b]))
     return m1[:b].mean(), m2[:b].mean(), m1[b:].mean(), m2[b:].mean()

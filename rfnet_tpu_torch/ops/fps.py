@@ -69,12 +69,23 @@ def gather_point(xyz: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(xyz, 1, idx.long()[..., None].expand(-1, -1, xyz.shape[-1]))
 
 
-def sampling(npoint: int, xyz: torch.Tensor, use_type: str = "f"):
-    """Reference ``sampling`` helper, farthest-point mode: (idx, points).
+def sampling(npoint: int, xyz: torch.Tensor, use_type: str = "f", *,
+             generator: torch.Generator | None = None):
+    """Reference ``sampling`` helper: (idx (b, npoint) int32, points).
 
-    The random mode ``'r'`` belongs to a later slice of the port.
+    'f' is farthest point sampling; 'r' one random index subset shared by
+    every cloud of the batch (the reference shuffles a single index vector
+    and tiles it across the batch), drawn from ``generator``, which takes the
+    place of the JAX function's PRNG key and is required as the key is.
     """
     if use_type == "f":
         idx = farthest_point_sample(npoint, xyz)
         return idx, gather_point(xyz, idx)
-    raise ValueError(f"unknown or unported sampling type: {use_type!r}")
+    if use_type == "r":
+        if generator is None:
+            raise ValueError("random sampling requires an explicit torch.Generator")
+        perm = torch.randperm(xyz.shape[1], generator=generator, device=generator.device)
+        idx = perm[:npoint].to(device=xyz.device, dtype=torch.int32)
+        idx = idx[None, :].expand(xyz.shape[0], npoint).contiguous()
+        return idx, gather_point(xyz, idx)
+    raise ValueError(f"unknown sampling type: {use_type!r}")

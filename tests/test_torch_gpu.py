@@ -88,6 +88,84 @@ def test_nn_dyn_kernel_equals_plain(cuda, case):
     torch.testing.assert_close(ki.cpu(), pi, rtol=0, atol=0)
 
 
+def _tiled_cases():
+    """The sorted-scan cases plus a blob inside a spread cloud (where a
+    z-slab prunes little), all points equal, and ragged many-tile sizes."""
+    rng = np.random.RandomState(12)
+    blob = (0.05 * rng.randn(2, 900, 3)).astype(np.float32)
+    spread = (rng.rand(2, 3000, 3) * 2.0 - 1.0).astype(np.float32)
+    same = [np.full((1, 50, 3), 0.25, np.float32), np.full((1, 700, 3), 0.75, np.float32)]
+    ragged = [rng.rand(3, 3000, 3).astype(np.float32), rng.rand(3, 16384, 3).astype(np.float32)]
+    return _sorted_cases() + [[blob, spread], [spread, blob], same, ragged,
+                              [rng.rand(1, 1, 3).astype(np.float32)] * 2]
+
+
+@pytest.mark.parametrize("case", range(9))
+def test_nn_pruned_kernel_equals_plain_and_k3(cuda, case):
+    from rfnet_tpu_torch.ops import chamfer_pruned
+
+    q, t = (torch.from_numpy(a) for a in _tiled_cases()[case])
+    qs, _ = chamfer.sort_by_z_with_order(q)
+    ts, _ = chamfer.sort_by_z_with_order(t)
+    before = kernels.launches["nn_pruned"]
+    kd, ki = chamfer_pruned.nn_pruned(qs.to(cuda), ts.to(cuda))
+    assert kernels.launches["nn_pruned"] == before + 1
+    pd, pi = chamfer_pruned.nn_pruned(qs, ts)  # CPU: the full plain scan
+    # same sum-of-squares chain, bounds that never exceed it, lowest index on
+    # ties whatever the visit order: bit-equal to the plain scan and to K3
+    torch.testing.assert_close(kd.cpu(), pd, rtol=0, atol=0)
+    torch.testing.assert_close(ki.cpu(), pi, rtol=0, atol=0)
+    dd, di = chamfer.nn_dyn(qs.to(cuda), ts.to(cuda))
+    torch.testing.assert_close(kd, dd, rtol=0, atol=0)
+    torch.testing.assert_close(ki, di, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("tiles", [(128, 128), (256, 512), (32, 7), (64, 4096)])
+@pytest.mark.parametrize("case", range(9))
+def test_nn_tile_kernel_equals_plain(cuda, case, tiles):
+    from rfnet_tpu_torch.ops import chamfer_tile
+
+    q, t = (torch.from_numpy(a) for a in _tiled_cases()[case])
+    qs, _ = chamfer_tile.sort_by_morton_with_order(q)
+    ts, _ = chamfer_tile.sort_by_morton_with_order(t)
+    before = kernels.launches["nn_tile"]
+    kd, ki, _ = chamfer._nn_tiled("nn_tile", qs.to(cuda), ts.to(cuda), *tiles)
+    assert kernels.launches["nn_tile"] == before + 1
+    pd, pi = chamfer_tile.nn_tile(qs, ts)  # CPU: the full plain scan
+    torch.testing.assert_close(kd.cpu(), pd, rtol=0, atol=0)
+    torch.testing.assert_close(ki.cpu(), pi, rtol=0, atol=0)
+    # exact for any order: unsorted clouds prune less and give the same answer
+    ud, ui, _ = chamfer._nn_tiled("nn_tile", q.to(cuda), t.to(cuda), *tiles)
+    fd, fi = chamfer._nn_sorted_plain(q, t)
+    torch.testing.assert_close(ud.cpu(), fd, rtol=0, atol=0)
+    torch.testing.assert_close(ui.cpu(), fi, rtol=0, atol=0)
+
+
+def test_tiled_kernels_prune(cuda):
+    """On a completion-like pair both kernels load a small share of the
+    target tiles, and the op-level wrappers equal ``nearest_neighbor_dyn``."""
+    from rfnet_tpu_torch.ops import chamfer_pruned, chamfer_tile
+
+    rng = np.random.RandomState(13)
+    t = rng.rand(2, 16384, 3).astype(np.float32)
+    t[..., 2] = 0.3 * np.sin(3 * t[..., 0]) * np.cos(2 * t[..., 1])  # a surface
+    q = (t + 0.005 * rng.randn(*t.shape)).astype(np.float32)
+    q, t = torch.from_numpy(q).to(cuda), torch.from_numpy(t).to(cuda)
+    dd, di = chamfer.nearest_neighbor_dyn(q, t)
+    for sort_fn, name, tn, tm in ((chamfer.sort_by_z_with_order, "nn_pruned", 256, 256),
+                                  (chamfer_tile.sort_by_morton_with_order, "nn_tile", 128, 128)):
+        qs, _ = sort_fn(q)
+        ts, _ = sort_fn(t)
+        _, _, visited = chamfer._nn_tiled(name, qs, ts, tn, tm)
+        share = float(visited.float().mean()) / (16384 // tm)
+        assert 0 < share < 0.25, (name, share)
+    for fn in (chamfer_pruned.nearest_neighbor_pruned, chamfer.nearest_neighbor_tile):
+        d, i = fn(q, t)
+        torch.testing.assert_close(d, dd, rtol=0, atol=0)
+        picked = (q - chamfer._gather_rows(t, i)).square().sum(-1)
+        torch.testing.assert_close(picked, dd, rtol=1e-5, atol=1e-9)
+
+
 def test_kernel_rejects_bad_input(cuda):
     q, t = _clouds(4, (1, 10, 3), (1, 10, 3))
     with pytest.raises(ValueError):

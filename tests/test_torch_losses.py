@@ -176,6 +176,27 @@ def test_safe_sqrt_caps_the_derivative():
     assert float(x.grad[0]) == pytest.approx(1 / (2 * 1e-7))
 
 
+def test_safe_sqrt_is_correctly_rounded():
+    """``chamfer_big`` and ``fidelity_loss`` take the correctly rounded
+    float32 root (numpy's, the IEEE one) and its capped derivative, bit for
+    bit, where PyTorch's own CPU root is one ulp off on some inputs: card
+    and CPU then return one value."""
+    r = np.random.RandomState(0)
+    x = np.concatenate([r.rand(1 << 17), 10.0 ** r.uniform(-12, 2, 1 << 17)]).astype(np.float32)
+    tx = _t(x, True)
+    y = losses._safe_sqrt(tx)
+    y.sum().backward()
+    np.testing.assert_array_equal(y.detach().numpy(), np.sqrt(x))
+    want = np.float32(1.0) / (np.float32(2.0) * np.maximum(np.sqrt(x), np.float32(1e-7)))
+    np.testing.assert_array_equal(tx.grad.numpy(), want)
+    a, b = _t(r.rand(2, 300, 3).astype(np.float32)), _t(r.rand(2, 300, 3).astype(np.float32))
+    d1, _, d2, _ = chamfer.nn_distance(a, b)
+    cd, _ = losses.chamfer_big(a, b)
+    want = (np.sqrt(d1.numpy()).mean(dtype=np.float64) + np.sqrt(d2.numpy()).mean(dtype=np.float64)) / 2
+    np.testing.assert_allclose(cd.item(), want, rtol=1e-6)
+    assert losses.fidelity_loss(a, b).item() == torch.from_numpy(np.sqrt(d1.numpy())).mean().item()
+
+
 def test_zero_groupnear_and_groupin_near_match_jax(rng):
     cens, raw = _blobs(rng, 2, 16), _blobs(rng, 2, 64)
     for scale in (0.01, 10.0):  # inside and outside the hinge

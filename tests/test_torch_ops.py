@@ -78,7 +78,7 @@ def test_sampling_gathers_fps_points(rng):
     np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
     np.testing.assert_array_equal(pts.numpy(), np.asarray(jpts))
     with pytest.raises(ValueError):
-        fps.sampling(8, _t(xyz), "r")
+        fps.sampling(8, _t(xyz), "r")  # the random mode needs a generator
 
 
 @pytest.mark.parametrize("case", ["random", "dup_targets"])
@@ -206,11 +206,12 @@ def test_port_never_imports_jax():
         "for name in sorted(names):\n"
         "    importlib.import_module(name)\n"
         "need = {'rfnet_tpu_torch.' + m for m in ('train', 'losses', 'eval', 'ops.emd',"
-        " 'ops.nn_grad', 'ops.chamfer', 'data.dataset', 'kernels')}\n"
+        " 'ops.nn_grad', 'ops.chamfer', 'ops.chamfer_pruned', 'ops.chamfer_tile', 'ops.grouping',"
+        " 'ops.interpolate', 'ops.auction', 'data.dataset', 'kernels')}\n"
         "assert need <= names, need - names\n"
         "import chip_smoke\n"
         "sys.path.insert(0, 'tools')\n"
-        "import profile_torch_serving\n"
+        "import profile_torch_serving, bench_torch_nn_sorted\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')"
         " or k == 'rfnet_tpu' or k.startswith('rfnet_tpu.'))\n"
         "print(len(names), bad)\n"

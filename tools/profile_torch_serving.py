@@ -3,12 +3,17 @@
 
     python3 tools/profile_torch_serving.py [--batch 4] [--iters 5]
     python3 tools/profile_torch_serving.py --mode train --batch 32 [--iters 3]
+    python3 tools/profile_torch_serving.py --mode train --batch 32 --backend tile
 
 Runs one step under ``torch.profiler``: in ``serve`` mode the serving step of
 ``rfnet_tpu_torch.eval`` (full-width random-init RFNet forward + CD/fidelity
 metrics on synthetic clouds), in ``train`` mode ``rfnet_tpu_torch.train``'s
 train step (forward, ``losses.total_loss``, backward and the Adam update of
-the full-width random-init RFNet on synthetic clouds). It prints:
+the full-width random-init RFNet on synthetic clouds). ``--backend`` sets the
+losses' and metrics' sorted-space scan for the run (the module constant
+``rfnet_tpu_torch.ops.chamfer._NN_SORTED_BACKEND``): ``dyn`` = z sort + K3,
+the default, ``tile`` = Morton sort + K8, so the two backends' device time
+can be read side by side. It prints:
 
 * host wall time per step (to ``synchronize()``), summed device kernel time
   per step, and the device's idle share = 1 - kernel time / wall time;
@@ -37,6 +42,8 @@ GROUPS = (
     ("K5 nn_grad", ("nn_grad_kernel",)),
     ("K6 emd_cost", ("emd_fill_kernel", "emd_row_kernel", "emd_col_kernel",
                      "emd_reduce_kernel")),
+    ("K7 nn_pruned", ("nn_pruned_kernel",)),
+    ("K8 nn_tile", ("nn_tile_kernel",)),
     ("matmul", ("gemm", "cutlass", "cublas", "sm90_xmma", "ampere")),
     ("sort", ("sort", "radix")),
     ("index/scatter", ("index", "scatter", "gather")),
@@ -57,6 +64,7 @@ def main(argv=None) -> int:
     p.add_argument("--mode", choices=("serve", "train"), default="serve")
     p.add_argument("--batch", type=int, default=4)
     p.add_argument("--iters", type=int, default=5)
+    p.add_argument("--backend", choices=("dyn", "tile"), default="dyn")
     args = p.parse_args(argv)
 
     import numpy as np
@@ -69,7 +77,9 @@ def main(argv=None) -> int:
     from rfnet_tpu_torch.data.dataset import synthetic_pairs
     from rfnet_tpu_torch.eval import make_complete_fn
     from rfnet_tpu_torch.models import RFNet
+    from rfnet_tpu_torch.ops import chamfer
 
+    chamfer._NN_SORTED_BACKEND = args.backend
     dev = torch.device("cuda", 0)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -108,8 +118,9 @@ def main(argv=None) -> int:
     # device_time_total is in microseconds, summed over the profiled steps
     dev_ms = {e.key: e.device_time_total / 1e3 / args.iters for e in events}
     busy = sum(dev_ms.values())
-    print(f"{args.mode} batch {args.batch}: wall {wall * 1e3:.3f} ms/step, device kernels "
-          f"{busy:.3f} ms/step, idle share {1 - busy / (wall * 1e3):.3f}")
+    print(f"{args.mode} batch {args.batch}, backend {args.backend}: wall {wall * 1e3:.3f} "
+          f"ms/step, device kernels {busy:.3f} ms/step, idle share "
+          f"{1 - busy / (wall * 1e3):.3f}")
     if busy == 0:
         raise SystemExit("profiler recorded no device time")
     by_group: dict[str, float] = {}
