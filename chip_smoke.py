@@ -12,7 +12,12 @@
    approx-EMD cost at the trainer's shapes (batch 32, eval batch 4); K7
    box-pruned NN and K8 best-first box-tile NN, bit for bit, at the losses'
    and the metrics' shapes on completion-like and on random-init outputs,
-   each beside K3, and K5 with K8's Morton-order indices;
+   each beside K3, and K5 with K8's Morton-order indices; K5 also with
+   every query on one target, with a random-init model's argmins and with
+   ragged n != m, beside a stable sort of its indices alone; K6 also on
+   random-init outputs and on a ragged pair, bit-equal with its skip rule
+   off, with the share of tile pairs it skips at each level and its time
+   with each switchable design step off;
 3. serves 16 synthetic clouds in the PCN layout through
    ``rfnet_tpu_torch.eval.main`` on the card with a random-init full-width
    RFNet, checks the CSV, and checks the kernels that run launched; then
@@ -80,6 +85,36 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int, kernel: str) -> float | None:
+    """Device time a call of ``fn`` spends in the kernels whose name contains
+    ``kernel``, from ``torch.profiler``: what the card takes, however long the
+    host needs to launch. None where the profiler recorded no device event
+    in two tries (its tracing may be unavailable on a machine): the number
+    is a side reading, and no check rests on it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.device_time_total for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.key)
+        if us > 0:
+            return us / 1e3 / iters
+    seen = sorted({e.key for e in prof.key_averages()})
+    print(f"device_ms: the profiler recorded no device time for kernels named *{kernel}* in "
+          f"two tries (events it saw: {seen[:8]}); that time is not measured in this run")
+    return None
+
+
+def fmt_ms(ms: float | None) -> str:
+    return "not measured" if ms is None else f"{ms:.4f}"
 
 
 def bound(flops: float, nbytes: float) -> tuple[float, str]:
@@ -233,16 +268,21 @@ def train_batch(b: int, seed: int):
             torch.from_numpy(np.stack([g for _, _, g in pairs])))
 
 
-def check_k5(name: str, x1, g, idx) -> dict:
+def check_k5(name: str, x1, g, idx, m: int | None = None) -> dict:
     """K5 against its CPU plain version (``index_add_`` in query order), bit
-    for bit, for one (x1, g, idx) of a chamfer backward; returns its row."""
+    for bit, for one (x1, g, idx) of a chamfer backward into ``m`` targets
+    (the number of queries where not given); returns its row. ``ms`` is the
+    wrapper's call (scratch allocation and launch included, which the host
+    bounds where the kernel is short), ``device_ms`` the kernel on the card.
+    Beside them it times the stable sort of ``idx`` alone, the grouping step
+    a sort-based design pays before it sums."""
     import torch
 
     from rfnet_tpu_torch.ops.nn_grad import _scatter_plain, nn_grad_scatter
 
     dev = x1.device
     b, nq = idx.shape
-    m = nq
+    m = nq if m is None else m
     ksp, ksw = nn_grad_scatter(x1, g, idx, m)
     psp, psw = _scatter_plain(x1.cpu(), g.cpu(), idx.cpu(), m)  # index_add_ in order
     torch.cuda.synchronize()
@@ -252,14 +292,68 @@ def check_k5(name: str, x1, g, idx) -> dict:
     src = torch.cat([g[..., None] * x1, g[..., None]], -1).reshape(-1, 4)
     flat = (idx.long() + m * torch.arange(b, device=dev)[:, None]).reshape(-1)
     ms = cuda_ms(lambda: nn_grad_scatter(x1, g, idx, m), 20)
+    dev_ms = device_ms(lambda: nn_grad_scatter(x1, g, idx, m), 20, "nn_grad_kernel")
     plain_ms = cuda_ms(lambda: _scatter_plain(x1, g, idx, m), 20)
     lib_ms = cuda_ms(lambda: torch.zeros(b * m, 4, device=dev).index_add_(0, flat, src), 20)
+    sort_ms = cuda_ms(lambda: torch.sort(idx, dim=1, stable=True), 20)
     b_ms, b_by = bound(8.0 * b * nq, 20.0 * b * nq + 16.0 * b * m)
     print(f"K5 nn_grad {name} ({b},{nq})->{m}: equal to the CPU plain version bit for bit; "
-          f"kernel (with its index sort) {ms:.4f} ms, plain {plain_ms:.4f} ms, index_add_ "
-          f"{lib_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
+          f"kernel {ms:.4f} ms ({fmt_ms(dev_ms)} on the card alone), plain {plain_ms:.4f} ms, "
+          f"index_add_ {lib_ms:.4f} ms, a stable "
+          f"torch.sort of the indices alone {sort_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=lib_ms)
+                library_ms=lib_ms, index_sort_ms=sort_ms, device_ms=dev_ms)
+
+
+def check_k6(name: str, x1, x2) -> dict:
+    """K6 against its plain recurrence (rtol 2e-4: the same recurrence with
+    its fp32 sums in another order and its weights a few ulps apart), against
+    itself (two runs bit-equal) and against itself with the band skip off
+    (bit-equal: a skipped pair's weight is exactly 0); returns its row, with
+    the share of tile pairs skipped at each level and the time with the skip
+    off."""
+    import torch
+
+    from rfnet_tpu_torch.ops import emd
+
+    kc = emd.approx_match_cost(x1, x2)
+    again = emd.approx_match_cost(x1, x2)
+    unskipped = emd._approx_match_cost_kernel(x1, x2, band_skip=False)
+    pc = emd._approx_match_cost_plain(x1, x2)
+    torch.cuda.synchronize()
+    rel = float(((kc - pc).abs() / pc.abs()).max())
+    check(bool(torch.isfinite(kc).all()) and rel <= 2e-4, f"K6 {name}: cost {kc} vs plain {pc}")
+    check(torch.equal(kc, again), f"K6 {name}: two runs differ: {kc} vs {again}")
+    check(torch.equal(kc, unskipped),
+          f"K6 {name}: skipping changed the result: {kc} vs {unskipped} with every pair visited")
+    shares = emd._skipped_shares(emd._sorted_with_boxes(x1)[0], emd._sorted_with_boxes(x2)[0])
+    print(f"K6 emd_cost {name}: share of (64-point, 128-point) tile pairs skipped at levels "
+          f"{[int(v) if v == int(v) else v for v in emd._levels()]}: "
+          f"{[round(v, 4) for v in shares]}")
+    ms = cuda_ms(lambda: emd.approx_match_cost(x1, x2), 5, warmup=1)
+    no_skip_ms = cuda_ms(lambda: emd._approx_match_cost_kernel(x1, x2, band_skip=False), 3,
+                         warmup=1)
+    prep_ms = cuda_ms(lambda: emd._morton_sorted_pair(x1, x2), 5)
+    dev_ms = device_ms(lambda: emd.approx_match_cost(x1, x2), 3, "emd_")
+    plain_ms = cuda_ms(lambda: emd._approx_match_cost_plain(x1, x2), 1, warmup=0)
+    # per pair: d2 and its root once (9 ops), then per level exp, the row and
+    # column sums, delta, its cost and its row sum (10 ops) over 10 levels;
+    # a pair at a level where its tile pair is skipped needs none of the 10
+    b, n, m = x1.shape[0], x1.shape[1], x2.shape[1]
+    ops = 9.0 + 10.0 * sum(1.0 - v for v in shares)
+    b_ms, b_by = bound(ops * b * n * m, 4.0 * (3 * b * (n + m) + b))
+    full_ms, _ = bound(109.0 * b * n * m, 0.0)
+    print(f"K6 emd_cost {name} ({b},{n},3)x({b},{m},3): max rel diff vs plain {rel:.3g} (rtol "
+          f"2e-4), two runs bit-equal, "
+          f"bit-equal with the skip off; kernel with its Morton sorts {ms:.4f} ms (the sorts "
+          f"alone {prep_ms:.4f}, its device kernels alone {fmt_ms(dev_ms)}), skip off "
+          f"{no_skip_ms:.4f}, plain {plain_ms:.4f} ms, "
+          f"bound {b_ms:.6f} ms ({b_by}; {ops:.1f} ops a pair after skipping, {full_ms:.6f} ms "
+          f"at 109 with nothing skipped)")
+    return dict(max_abs_err=float((kc - pc).abs().max()), ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None, skipped_share_by_level=shares,
+                no_skip_ms=no_skip_ms, prep_ms=prep_ms, device_ms=dev_ms,
+                bound_unskipped_ms=full_ms)
 
 
 def check_train_kernels(dev, rows: dict) -> None:
@@ -267,7 +361,7 @@ def check_train_kernels(dev, rows: dict) -> None:
     (batch 32; the eval's batch 4 for K6), recorded into ``rows``."""
     import torch
 
-    from rfnet_tpu_torch.ops import chamfer, emd, fps
+    from rfnet_tpu_torch.ops import chamfer, fps
 
     partial, gt = (x.to(dev) for x in train_batch(32, seed=11))
     gen = torch.Generator(device=dev).manual_seed(11)
@@ -336,25 +430,18 @@ def check_train_kernels(dev, rows: dict) -> None:
                              ("pair all-to-one", gt2x, g1, torch.full_like(i1, 16383))):
         record(rows, "nn_grad", f"{name} ({idx.shape[0]},{idx.shape[1]})->{idx.shape[1]}",
                check_k5(name, x1, g, idx), main=name == "pair")
+    # ragged n != m both ways: the input's 3000 points against an output's 16384
+    pz, _ = chamfer.sort_by_z_with_order(partial)
+    oz, _ = chamfer.sort_by_z_with_order(out_a)
+    for name, q, t in (("ragged partial->out", pz, oz), ("ragged out->partial", oz, pz)):
+        d3, i3 = chamfer.nn_dyn(q, t)
+        g3 = 1.0 / (32 * q.shape[1] * 2.0 * torch.clamp(torch.sqrt(d3), min=1e-7))
+        record(rows, "nn_grad", f"{name} (32,{q.shape[1]})->{t.shape[1]}",
+               check_k5(name, q, g3, i3, m=t.shape[1]))
 
     # K6: the eval's approx-EMD cost, 4 clouds of 16384 points
-    x1, x2 = gt[:4].contiguous(), out_a[:4].contiguous()
-    kc = emd.approx_match_cost(x1, x2)
-    pc = emd._approx_match_cost_plain(x1, x2)
-    torch.cuda.synchronize()
-    rel = float(((kc - pc).abs() / pc.abs()).max())
-    check(bool(torch.isfinite(kc).all()) and rel <= 2e-4, f"K6: cost {kc} vs plain {pc}")
-    ms = cuda_ms(lambda: emd.approx_match_cost(x1, x2), 3, warmup=1)
-    plain_ms = cuda_ms(lambda: emd._approx_match_cost_plain(x1, x2), 1, warmup=0)
-    # per pair: d2 and its root once (9 ops), then per level exp, the row and
-    # column sums, delta, its cost and its row sum (10 ops) over 10 levels
-    n = x1.shape[1]
-    b_ms, b_by = bound(109.0 * 4 * n * n, 4.0 * (2 * 4 * n * 3 + 4))
-    print(f"K6 emd_cost (4,{n},3)x(4,{n},3): max rel diff vs plain {rel:.3g} (rtol 2e-4); "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
-    record(rows, "emd_cost", f"(4,{n},3)x(4,{n},3)",
-           dict(max_abs_err=float((kc - pc).abs().max()), ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, library_ms=None), main=True)
+    record(rows, "emd_cost", "completion-like (4,16384,3)x(4,16384,3)",
+           check_k6("completion-like", gt[:4].contiguous(), out_a[:4].contiguous()), main=True)
 
 
 # launches of each kernel in one train step and in one eval batch of 4
@@ -744,6 +831,12 @@ def check_tiled_kernels(dev, rows: dict) -> None:
     g1 = 1.0 / (64 * 16384 * 2.0 * torch.clamp(torch.sqrt(d1), min=1e-7))
     record(rows, "nn_grad", "pair, z order, random-init (64,16384)->16384",
            check_k5("pair, z order, random-init", gzs, g1, i1))
+
+    # K6 on a random-init model's outputs, and on a ragged pair
+    record(rows, "emd_cost", "random-init (4,16384,3)x(4,16384,3)",
+           check_k6("random-init", gt[:4].contiguous(), rnd_b[:4].contiguous()))
+    record(rows, "emd_cost", "ragged (4,3000,3)x(4,16384,3)",
+           check_k6("ragged", partial[:4].contiguous(), out_a[:4].contiguous()))
 
 
 def op_api(dev) -> dict:

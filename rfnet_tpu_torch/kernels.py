@@ -38,6 +38,7 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C signature of each kernel entry point (all return int = cudaError_t)
 _SIGNATURES = {
     # xyz, b, n, npoint, idx_out, stream
@@ -48,11 +49,13 @@ _SIGNATURES = {
     "nn_dyn": (_P, _P, _I, _I, _I, _P, _P, _P),
     # query, target, b, n, m, dist_out, idx_out, stream
     "nn_dense": (_P, _P, _I, _I, _I, _P, _P, _P),
-    # x1, g, sorted idx (int32), order (int64), b, n, m, sp_out, sw_out, stream
-    "nn_grad": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P),
-    # xyz1, xyz2, b, n, m, multi_l, multi_r, remain_l, ratio_l, rowcost,
-    # remain_r, ratio_r (scratch), cost_out, stream
-    "emd_cost": (_P, _P, _I, _I, _I, _F, _F, _P, _P, _P, _P, _P, _P, _P),
+    # x1, g, idx (int32), b, n, m, blocks a cloud, scratch, its ints a block,
+    # sp_out, sw_out, stream
+    "nn_grad": (_P, _P, _P, _I, _I, _I, _I, _P, _L, _P, _P, _P),
+    # xyz1, xyz2 (spatially sorted), their tile boxes (scratch), b, n, m,
+    # tile, parts, multi_l, multi_r, remain_l, ratio_l, rowcost, remain_r,
+    # ratio_r, part_sums (scratch), cost_out, band_skip, stream
+    "emd_cost": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P, _P, _P, _P, _P, _P, _P, _I, _P),
     # query_sorted, target_sorted, tile boxes, b, n, m, tile_n, tile_m,
     # dist_out, idx_out, tiles loaded per block out, stream
     "nn_pruned": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P),

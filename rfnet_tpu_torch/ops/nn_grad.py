@@ -4,19 +4,53 @@
         -> S_p (b,m,3) = Σ_{i: idx[i]=j} g[i]·x1[i],   S_w (b,m) = Σ g[i]
 
 The chamfer backward folds these into ``d_x2[j] = −2·S_p[j] + 2·x2[j]·S_w[j]``.
-A CUDA tensor goes through kernel K5 (``csrc/nn_grad.cu``): a stable sort of
-each row of ``idx`` groups the queries of each target in ascending query
-index, and one thread a target sums them in that order. A CPU tensor goes
-through :func:`_scatter_plain`, ``index_add_`` into zeros, which adds the
-rows in the same order with the same rounding, so the two agree bit for bit.
-Both are deterministic: no atomics.
+A CUDA tensor goes through kernel K5 (``csrc/nn_grad.cu``), which does the
+whole function itself, one block a cloud: it groups the queries by target in
+shared memory (integer counters, a prefix sum, placement) and adds each run
+in ascending query index, a lane for a short run, a warp for a long one, with
+no load waiting for a sum. Nothing here sorts. The
+function is bound by its bytes (20 a query, 16 a target); the kernel's time
+goes into the grouping and into one block's latency a cloud. A CPU tensor
+goes through :func:`_scatter_plain`, ``index_add_`` into zeros, which adds
+the rows in the same order with the same rounding, so the two agree bit for
+bit. Both are deterministic: the kernel's only atomics count integers.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from rfnet_tpu_torch import kernels
+
+
+# Most blocks one cloud's targets are split over (each block reads every index).
+_MAX_PARTS = 4
+# Longest run one lane sums alone: kShort of csrc/nn_grad.cu, which sizes the
+# kernel's list of longer runs.
+_SHORT = 8
+
+
+def _block_scratch(n: int, m_part: int) -> int:
+    """Ints of scratch one block of K5 indexes (``block_scratch`` of
+    ``csrc/nn_grad.cu``, which refuses a smaller stride): the sorted queries
+    of its long runs (n), the list of those runs (n / _SHORT + 1), and its
+    counters and slots (m_part + n) for sizes that do not fit in a block's
+    shared memory."""
+    return 2 * n + m_part + n // _SHORT + 1
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _scratch_shape(b: int, n: int, m: int, device: torch.device) -> tuple[int, int]:
+    """``(parts, width)`` of K5's (b, parts, width) int32 scratch: as many
+    blocks a cloud as fill the card, each with a range of the targets."""
+    parts = max(1, min(_MAX_PARTS, _sm_count(device) // b, m))
+    return parts, _block_scratch(n, -(-m // parts))
 
 
 def index_add_rows(shape, idx: torch.Tensor, updates: torch.Tensor) -> torch.Tensor:
@@ -51,9 +85,10 @@ def nn_grad_scatter(x1_sorted: torch.Tensor, g: torch.Tensor, idx: torch.Tensor,
     g = g.detach().contiguous()
     if not x1.is_cuda:
         return _scatter_plain(x1, g, idx, m)
-    sidx, order = torch.sort(idx.to(torch.int32), dim=1, stable=True)
+    idx = idx.to(torch.int32).contiguous()
     sp = torch.empty((b, m, 3), dtype=torch.float32, device=x1.device)
     sw = torch.empty((b, m), dtype=torch.float32, device=x1.device)
-    kernels.launch("nn_grad", x1.device, x1, g, sidx.contiguous(), order.contiguous(),
-                   b, n, m, sp, sw)
+    parts, width = _scratch_shape(b, n, m, x1.device)
+    slots = torch.empty((b, parts, width), dtype=torch.int32, device=x1.device)
+    kernels.launch("nn_grad", x1.device, x1, g, idx, b, n, m, parts, slots, width, sp, sw)
     return sp, sw

@@ -266,3 +266,130 @@ def test_chamfer_backward_launches_k5_only_for_live_clouds(cuda):
         grads[str(dev)] = (xa.grad.cpu(), xb.grad.cpu())
     for k, c in zip(grads[str(cuda)], grads["cpu"]):
         torch.testing.assert_close(k, c, rtol=0, atol=0)
+
+
+def _runs_index(lengths, m, seed):
+    """(n,) int32 index whose target j < len(lengths) is picked by lengths[j]
+    queries, scattered over the query axis (the other targets by none)."""
+    idx = np.repeat(np.arange(len(lengths)), lengths)
+    assert len(lengths) <= m
+    return np.random.RandomState(seed).permutation(idx).astype(np.int32)
+
+
+# run lengths around every threshold of K5: the longest run one lane sums
+# (8), a warp's width (32), the rows a warp stages (64) and has in flight
+# (128, 192), and 0 and 1
+_K5_LENGTHS = [0, 1, 7, 8, 9, 31, 32, 33, 63, 64, 65, 127, 128, 129, 191, 192, 193, 0, 700, 5]
+
+
+@pytest.mark.parametrize("b,m", [(1, 40), (1, 3001), (40, 20), (140, 64)])
+def test_nn_grad_kernel_run_lengths_cross_every_threshold(cuda, b, m):
+    """One block a cloud (b = 140), or 3 or 4 blocks each with a range of its
+    targets (b = 40, b = 1): bit-equal to the CPU's index_add_ whatever the
+    run lengths and however the runs' queries are scattered."""
+    from rfnet_tpu_torch.ops.nn_grad import nn_grad_scatter
+
+    lengths = _K5_LENGTHS[:m]
+    idx = np.stack([np.roll(_runs_index(lengths, m, 20 + i), i) for i in range(b)])
+    n = idx.shape[1]
+    rng = np.random.RandomState(21)
+    x1 = torch.from_numpy(rng.rand(b, n, 3).astype(np.float32))
+    g = torch.from_numpy(rng.randn(b, n).astype(np.float32))
+    idx = torch.from_numpy(idx)
+    ksp, ksw = nn_grad_scatter(x1.to(cuda), g.to(cuda), idx.to(cuda), m)
+    psp, psw = nn_grad_scatter(x1, g, idx, m)
+    torch.testing.assert_close(ksp.cpu(), psp, rtol=0, atol=0)
+    torch.testing.assert_close(ksw.cpu(), psw, rtol=0, atol=0)
+
+
+# shared memory K5's counters and slots may take (csrc/nn_grad.cu: kMaxShared
+# less the warps' own 32 x 2048 bytes and 1024 of static room)
+_K5_SHARED_INTS = (232448 - 1024 - 32 * 2048) // 4
+
+
+@pytest.mark.parametrize("b,n,m,targets,fits", [
+    (2, 40000, 50, 50, True),          # long runs over more queries than one bitmap window (16384)
+    (1, 16385, 1, 1, True),            # all-to-one, one query past the window
+    (2, 30000, 40000, 300, True),      # four blocks a cloud, near the shared-memory limit
+    (1, 20000, 300000, 300, False),    # a block's counters alone exceed shared memory
+    (1, 70000, 9, 9, False),           # slots exceed it, long runs over five windows
+    (3, 45000, 64, 64, False),         # the same for twelve blocks, each with its scratch row
+])
+def test_nn_grad_kernel_large_sizes(cuda, b, n, m, targets, fits):
+    from rfnet_tpu_torch.ops.nn_grad import _scratch_shape, nn_grad_scatter
+
+    parts, _ = _scratch_shape(b, n, m, cuda)
+    assert (-(-m // parts) + n <= _K5_SHARED_INTS) == fits
+    rng = np.random.RandomState(22)
+    x1 = torch.from_numpy(rng.rand(b, n, 3).astype(np.float32))
+    g = torch.from_numpy(rng.randn(b, n).astype(np.float32))
+    idx = torch.from_numpy((rng.randint(0, targets, (b, n)) * (m // targets)).astype(np.int32))
+    before = kernels.launches["nn_grad"]
+    ksp, ksw = nn_grad_scatter(x1.to(cuda), g.to(cuda), idx.to(cuda), m)
+    assert kernels.launches["nn_grad"] == before + 1
+    psp, psw = nn_grad_scatter(x1, g, idx, m)
+    torch.testing.assert_close(ksp.cpu(), psp, rtol=0, atol=0)
+    torch.testing.assert_close(ksw.cpu(), psw, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("b,n,m,one_target", [
+    (64, 16384, 16384, True),     # the train step's pair, all-to-one: every block's longest run
+    (64, 16384, 16384, False),    # the same with random indices
+    (1, 70000, 9, False),         # counters and slots in the scratch
+    (3, 45000, 64, True),
+    (5, 1000, 3000, False),       # ragged, short runs
+])
+def test_nn_grad_kernel_stays_inside_its_scratch(cuda, b, n, m, one_target):
+    """K5 launched on a scratch of exactly the wrapper's size that lies inside
+    a larger tensor: the ints before and after it keep their values, and the
+    sums equal the CPU's. A stride one int short is refused."""
+    from rfnet_tpu_torch.ops.nn_grad import _scatter_plain, _scratch_shape
+
+    rng = np.random.RandomState(23)
+    x1 = torch.from_numpy(rng.rand(b, n, 3).astype(np.float32))
+    g = torch.from_numpy(rng.randn(b, n).astype(np.float32))
+    idx = torch.from_numpy(np.full((b, n), m - 1, np.int32) if one_target
+                           else rng.randint(0, m, (b, n)).astype(np.int32))
+    parts, width = _scratch_shape(b, n, m, cuda)
+    guard, mark = 1 << 20, -123456789
+    arena = torch.full((guard + b * parts * width + guard,), mark, dtype=torch.int32, device=cuda)
+    scratch = arena[guard : guard + b * parts * width]
+    sp = torch.empty((b, m, 3), device=cuda)
+    sw = torch.empty((b, m), device=cuda)
+    args = (x1.to(cuda), g.to(cuda), idx.to(cuda), b, n, m, parts, scratch)
+    kernels.launch("nn_grad", cuda, *args, width, sp, sw)
+    torch.cuda.synchronize()
+    assert bool((arena[:guard] == mark).all()) and bool((arena[-guard:] == mark).all())
+    psp, psw = _scatter_plain(x1, g, idx, m)
+    torch.testing.assert_close(sp.cpu(), psp, rtol=0, atol=0)
+    torch.testing.assert_close(sw.cpu(), psw, rtol=0, atol=0)
+    with pytest.raises(RuntimeError, match="rfnet_nn_grad failed"):
+        kernels.launch("nn_grad", cuda, *args, width - 1, sp, sw)
+
+
+def _blobs(seed, b, n, extent, blobs=7):
+    rng = np.random.RandomState(seed)
+    centres = extent * (rng.rand(b, blobs, 3) - 0.5)  # around the origin: fp32 d² is an expansion
+    pick = rng.randint(0, blobs, (b, n))
+    pts = np.take_along_axis(centres, pick[..., None].repeat(3, -1), 1)
+    return torch.from_numpy((pts + 0.01 * extent * rng.randn(b, n, 3)).astype(np.float32))
+
+
+@pytest.mark.parametrize("extent,n,m", [(80.0, 1500, 1100), (3.0, 2100, 2100), (0.04, 900, 1300)])
+def test_emd_cost_kernel_band_skip(cuda, extent, n, m):
+    """Clouds so spread that every level with lambda < 0 skips tile pairs
+    (extent 80), unit-scale ones, and clouds so small that no level skips
+    any (extent < 0.05): K6 within the bar of the plain recurrence, and
+    bit-equal with its skip rule off."""
+    from rfnet_tpu_torch.ops import emd
+
+    x1, x2 = _blobs(14, 2, n, extent), _blobs(15, 2, m, extent)
+    shares = emd._skipped_shares(emd._sorted_with_boxes(x1)[0], emd._sorted_with_boxes(x2)[0])
+    if extent == 80.0:
+        assert min(shares[:9]) > 0.0 and shares[9] == 0.0
+    if extent < 0.05:
+        assert shares == [0.0] * 10
+    got = emd.approx_match_cost(x1.to(cuda), x2.to(cuda))
+    every_pair = emd._approx_match_cost_kernel(x1.to(cuda), x2.to(cuda), band_skip=False)
+    torch.testing.assert_close(got, every_pair, rtol=0, atol=0)
+    torch.testing.assert_close(got.cpu(), emd.approx_match_cost(x1, x2), rtol=2e-4, atol=0)
