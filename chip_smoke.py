@@ -9,7 +9,10 @@
    plain version and a one-call PyTorch yardstick with CUDA events: K1 FPS,
    K2 NN + coords and K3 early-exit NN at the serving path's shapes
    (batch 4); K1, K2, K3, K4 dense NN, K5 chamfer-backward scatter and K6
-   approx-EMD cost at the trainer's shapes (batch 32, eval batch 4); K7
+   approx-EMD cost at the trainer's shapes (batch 32, eval batch 4); K1
+   with its cluster size, its form (registers or streaming) and its chain
+   bound, also on 70 000 points; K3 with the share of pairs its blocks
+   must scan, also on a random-init model's outputs; K7
    box-pruned NN and K8 best-first box-tile NN, bit for bit, at the losses'
    and the metrics' shapes on completion-like and on random-init outputs,
    each beside K3, and K5 with K8's Morton-order indices; K5 also with
@@ -123,20 +126,24 @@ def bound(flops: float, nbytes: float) -> tuple[float, str]:
 
 
 def check_k3(name: str, qs, ts, library: bool = True) -> dict:
-    """K3 on z-sorted clouds against the full plain scan; returns its row.
+    """K3 on z-sorted clouds against the full plain scan and against K7 on
+    the same inputs, bit for bit on distances and indices; returns its row.
     The yardstick ``cdist(q, t).min(-1)`` is skipped where its (b, n, m)
     matrix would not fit in the card's memory."""
     import torch
 
-    from rfnet_tpu_torch.ops import chamfer
+    from rfnet_tpu_torch.ops import chamfer, chamfer_pruned
 
     kd, ki = chamfer.nn_dyn(qs, ts)
     pd, pi = chamfer._nn_sorted_plain(qs, ts)
+    sd, si = chamfer_pruned.nn_pruned(qs, ts)
     torch.cuda.synchronize()
     err = float((kd - pd).abs().max())
     agree = float((ki == pi).float().mean())
-    check(err <= 1e-6, f"K3 {name}: distances differ from the full plain scan by {err}")
-    check(agree >= 0.999, f"K3 {name}: indices agree on only {agree:.6f}")
+    check(torch.equal(kd, pd), f"K3 {name}: distances differ from the full plain scan by {err}")
+    check(torch.equal(ki, pi), f"K3 {name}: indices agree with the plain scan on only "
+          f"{agree:.6f}")
+    check(torch.equal(kd, sd) and torch.equal(ki, si), f"K3 {name}: differs from K7")
     b, nq, m = qs.shape[0], qs.shape[1], ts.shape[1]
     # pairs any exact z-slab walk must visit: targets with (qz-tz)^2 <= best
     tz = ts[..., 2].contiguous()
@@ -144,17 +151,45 @@ def check_k3(name: str, qs, ts, library: bool = True) -> dict:
     lo = torch.searchsorted(tz, (qs[..., 2] - r).contiguous(), right=False)
     hi = torch.searchsorted(tz, (qs[..., 2] + r).contiguous(), right=True)
     pairs = float((hi - lo).sum())
+    block_pairs = k3_block_pairs(lo, hi, m)
     ms = cuda_ms(lambda: chamfer.nn_dyn(qs, ts), 20)
+    dev_ms = device_ms(lambda: chamfer.nn_dyn(qs, ts), 10, "nn_dyn_kernel")
     plain_ms = cuda_ms(lambda: chamfer._nn_sorted_plain(qs, ts), 3, warmup=1)
     lib_ms = cuda_ms(lambda: torch.cdist(qs, ts).min(-1), 5) if library else None
     b_ms, b_by = bound(9.0 * pairs, 4.0 * b * (3 * nq + 3 * m + 2 * nq))
     lib = f"{lib_ms:.4f} ms" if library else "not run (matrix too large)"
-    print(f"K3 nn_dyn {name} ({b},{nq},3)x({b},{m},3): max|dd| vs full plain scan {err:.3g}, "
-          f"index agreement {agree:.6f}; slab pairs {pairs:.0f} "
-          f"({pairs / (b * nq * m):.4%} of dense); kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, cdist.min {lib}, bound {b_ms:.6f} ms ({b_by})")
+    print(f"K3 nn_dyn {name} ({b},{nq},3)x({b},{m},3): distances and indices bit-equal to the "
+          f"full plain scan and to K7; slab pairs {pairs:.0f} "
+          f"({pairs / (b * nq * m):.4%} of dense), pairs of the slabs the blocks must load "
+          f"{block_pairs:.0f} ({block_pairs / (b * nq * m):.4%} of dense, "
+          f"{block_pairs / max(pairs, 1.0):.2f}x the slab pairs); kernel {ms:.4f} ms "
+          f"({fmt_ms(dev_ms)} on the card alone), plain {plain_ms:.4f} ms, cdist.min {lib}, "
+          f"bound {b_ms:.6f} ms ({b_by})")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=lib_ms)
+                library_ms=lib_ms, device_ms=dev_ms, slab_pairs_share=pairs / (b * nq * m),
+                block_pairs_share=block_pairs / (b * nq * m))
+
+
+def k3_block_pairs(lo, hi, m: int) -> float:
+    """Pairs K3's blocks scan at least: a block of 256 consecutive sorted
+    queries loads every slab of ``chamfer._NN_DYN_SLAB`` targets that one of
+    its queries' z-windows [lo, hi) reaches, for all its queries (a warp may
+    still skip a loaded slab by its box)."""
+    import torch
+
+    from rfnet_tpu_torch.ops import chamfer
+
+    slab, tile = chamfer._NN_DYN_SLAB, 256
+    b, nq = lo.shape
+    pad = -nq % tile
+    lo_b = torch.nn.functional.pad(lo, (0, pad), value=m).view(b, -1, tile).amin(-1)
+    hi_b = torch.nn.functional.pad(hi, (0, pad), value=0).view(b, -1, tile).amax(-1)
+    first = torch.minimum(lo_b, hi_b - 1).clamp(min=0) // slab
+    last = (hi_b - 1).clamp(min=0) // slab
+    targets = torch.clamp((last + 1) * slab, max=m) - first * slab
+    live = torch.full_like(targets, tile)
+    live[:, -1] = nq - (live.shape[1] - 1) * tile
+    return float((live * targets).sum())
 
 
 def record(rows: dict, name: str, shape: str, row: dict, main: bool = False) -> None:
@@ -166,25 +201,62 @@ def record(rows: dict, name: str, shape: str, row: dict, main: bool = False) -> 
         entry.update(row)
 
 
+def cluster_chain_us(dev, b: int, cluster: int, exchange: bool) -> float:
+    """One round of K1's chain across ``b`` clusters of ``cluster`` CTAs, in
+    microseconds: its probe kernel timed with 20 000 rounds against none. A
+    round is K1's exchange (every warp stores one slot into every CTA with
+    st.async, every thread waits on its mbarrier) or, without ``exchange``,
+    one cluster barrier."""
+    import ctypes
+
+    import torch
+
+    from rfnet_tpu_torch import kernels
+
+    probe = kernels._library().rfnet_cluster_chain_probe
+    probe.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    probe.restype = ctypes.c_int
+
+    def run(iters: int) -> None:
+        err = probe(b, cluster, iters, int(exchange), torch.cuda.current_stream(dev).cuda_stream)
+        check(err == 0, f"cluster chain probe failed: error {err}")
+
+    many, none = cuda_ms(lambda: run(20000), 3), cuda_ms(lambda: run(0), 3)
+    return (many - none) * 1e3 / 20000
+
+
 def check_k1(x, npoint: int, iters: int) -> dict:
-    """K1 against the plain loop: identical indices required."""
+    """K1 against the plain loop: identical indices required. Beside the
+    operation bound it gives the chain bound: npoint - 1 rounds of the
+    kernel's exchange across the cluster, each at the round trip measured on
+    this card (and, for comparison, of one cluster barrier)."""
     import torch
 
     from rfnet_tpu_torch.ops import fps
 
     b, n = x.shape[0], x.shape[1]
+    cluster, per_thread = fps._fps_plan(b, n, fps._sm_count(x.device))
+    form = f"{per_thread} points a thread in registers" if per_thread else "streaming"
     k_idx = fps.farthest_point_sample(npoint, x)
     p_idx = fps._fps_plain(x, npoint)
     torch.cuda.synchronize()
     check(torch.equal(k_idx, p_idx), f"K1 FPS ({b},{n},3)->{npoint}: indices differ from the "
           f"plain version at {int((k_idx != p_idx).sum())} of {k_idx.numel()} picks")
     ms = cuda_ms(lambda: fps.farthest_point_sample(npoint, x), iters)
+    dev_ms = device_ms(lambda: fps.farthest_point_sample(npoint, x), 10, "fps_kernel")
     plain_ms = cuda_ms(lambda: fps._fps_plain(x, npoint), 3, warmup=1)
     b_ms, b_by = bound(8.0 * b * n * npoint, 4.0 * b * (3 * n + npoint))
-    print(f"K1 fps ({b},{n},3)->{npoint}: indices identical; kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
+    exchange_us = cluster_chain_us(x.device, b, cluster, True)
+    barrier_us = cluster_chain_us(x.device, b, cluster, False)
+    chain_ms = (npoint - 1) * exchange_us / 1e3
+    print(f"K1 fps ({b},{n},3)->{npoint}: clusters of {cluster} CTAs x {fps._FPS_THREADS} "
+          f"threads, {form}; indices identical; kernel {ms:.4f} ms ({fmt_ms(dev_ms)} on the "
+          f"card alone), plain {plain_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}), chain bound "
+          f"{chain_ms:.6f} ms ({npoint - 1} exchanges of {exchange_us:.4f} us; a cluster barrier "
+          f"takes {barrier_us:.4f} us)")
     return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=None)
+                library_ms=None, device_ms=dev_ms, cluster=cluster, points_a_thread=per_thread,
+                chain_bound_ms=chain_ms, exchange_us=exchange_us, cluster_barrier_us=barrier_us)
 
 
 def check_k2(q, t) -> dict:
@@ -373,6 +445,9 @@ def check_train_kernels(dev, rows: dict) -> None:
     record(rows, "fps", "(32,3000,3)->32", check_k1(partial, 32, 50))
     for npoint in (64, 1024):
         record(rows, "fps", f"(32,16384,3)->{npoint}", check_k1(gt, npoint, 20))
+    # a cloud larger than 8 CTAs hold in registers: the streaming form
+    big = torch.rand((1, 70000, 3), generator=gen, device=dev)
+    record(rows, "fps", "(1,70000,3)->64", check_k1(big, 64, 10))
     gt1 = fps.gather_point(gt, fps.farthest_point_sample(64, gt))
     gt2 = fps.gather_point(gt, fps.farthest_point_sample(1024, gt))
     # K2: the three merge scans of the forward, outputs into the input
@@ -772,6 +847,22 @@ def check_tiled(kernel: str, name: str, q, t, library: bool = True) -> dict:
                 needed_pairs_share=pairs / (b * nq * m))
 
 
+def k3_random_init_cases(gt, gt2, rnd_a, rnd_b, pair_rnd) -> list:
+    """(name, sorted queries, sorted targets, time cdist) of K3 on a
+    random-init model's outputs, which lie far from the ground truth: the
+    metrics' scans at batch 4 and the losses' pair and re_chamfer scans."""
+    from rfnet_tpu_torch.ops import chamfer
+
+    z = lambda x: chamfer.sort_by_z_with_order(x.contiguous())[0]  # noqa: E731
+    g4, r4, g2, p2 = z(gt[:4]), z(rnd_b[:4]), z(gt2), z(pair_rnd)
+    # cdist's (64, 16384, 16384) matrix of the pair would take 64 GiB
+    return [("random-init out->gt", r4, g4, True), ("random-init gt->out", g4, r4, True),
+            ("random-init pair gt->out", g2, p2, False),
+            ("random-init pair out->gt", p2, g2, False),
+            ("random-init re_chamfer pred->gt", z(rnd_a.reshape(256, 2048, 3)),
+             z(gt.reshape(256, 2048, 3)), True)]
+
+
 def check_tiled_kernels(dev, rows: dict) -> None:
     """Phase 2c: K7 and K8 against the plain scan at the metrics' and the
     losses' shapes, on completion-like clouds (the gt jittered by 0.005) and
@@ -792,6 +883,9 @@ def check_tiled_kernels(dev, rows: dict) -> None:
     rnd_a, rnd_b = res.out3.clone(), res.out4.clone()
     gt2, pair_like = torch.cat([gt, gt], 0), torch.cat([out_a, out_b], 0)
     pair_rnd = torch.cat([rnd_a, rnd_b], 0)
+    # K3 on the random-init outputs at the metrics' and the losses' shapes
+    for name, q, t, library in k3_random_init_cases(gt, gt2, rnd_a, rnd_b, pair_rnd):
+        record(rows, "nn_dyn", name, check_k3(name, q, t, library))
     cases = [
         ("completion-like out->gt", out_a[:4], gt[:4], True),
         ("random-init out->gt", rnd_b[:4], gt[:4], True),

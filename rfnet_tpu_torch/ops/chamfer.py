@@ -38,6 +38,9 @@ from rfnet_tpu_torch.ops.nn_grad import index_add_rows, nn_grad_scatter
 
 # Elements of one (b, chunk, m) temporary in the plain scans.
 _PLAIN_CHUNK_ELEMS = 1 << 25
+# K3: consecutive sorted targets in one shared-memory slab (kSlab in
+# csrc/nn_dyn.cu, which refuses another value)
+_NN_DYN_SLAB = 256
 
 
 def _check_pair(query: torch.Tensor, target: torch.Tensor) -> None:
@@ -226,7 +229,7 @@ def nn_dyn(query_sorted: torch.Tensor, target_sorted: torch.Tensor):
     m = ts.shape[1]
     dist = torch.empty((b, n), dtype=torch.float32, device=qs.device)
     idx = torch.empty((b, n), dtype=torch.int32, device=qs.device)
-    kernels.launch("nn_dyn", qs.device, qs, ts, b, n, m, dist, idx)
+    kernels.launch("nn_dyn", qs.device, qs, ts, b, n, m, _NN_DYN_SLAB, dist, idx)
     return dist, idx
 
 

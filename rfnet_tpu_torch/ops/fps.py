@@ -7,20 +7,28 @@ Semantics of the reference ``FarthestPointSample`` / ``GatherPoint`` ops:
   * ``farthest_point_sample`` has no gradient; ``gather_point``'s gradient is
     autograd's scatter-add into the source cloud.
 
-A CUDA tensor goes through kernel K1 (``csrc/fps.cu``); a CPU tensor through
-the plain loop :func:`_fps_plain`, which computes the same distances in the
-same order, so both give identical indices.
+A CUDA tensor goes through kernel K1 (``csrc/fps.cu``), at any number of
+points; a CPU tensor through the plain loop :func:`_fps_plain`, which
+computes the same distances in the same order, so both give identical
+indices.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from rfnet_tpu_torch import kernels
 
-# K1 keeps 4 bytes a point in shared memory: 232 448 bytes a block, less its
-# 272 bytes of static shared memory
-_FPS_MAX_POINTS = (232_448 - 272) // 4
+# K1 takes a cloud in a cluster of up to 4 CTAs of 256 threads (up to 8
+# where 4 cannot hold it), each thread holding up to 32 points in registers
+# (the register forms the kernel has); a larger cloud takes the streaming
+# form
+_FPS_CLUSTER = 4
+_FPS_MAX_CLUSTER = 8
+_FPS_THREADS = 256
+_FPS_PER_THREAD = (1, 2, 4, 8, 16, 32)
 
 
 def _fps_plain(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
@@ -41,13 +49,49 @@ def _fps_plain(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
     return torch.stack(picks, dim=1).to(torch.int32)
 
 
+def _fps_plan(b: int, n: int, sms: int) -> tuple[int, int]:
+    """K1's launch for ``b`` clouds of ``n`` points on a card with ``sms``
+    SMs: (CTAs a cloud, points a thread in registers, 0 for the streaming
+    form).
+
+    The cluster is the largest power of two up to 4 whose ``b`` clusters
+    take at most half the SMs, halved while half of it would give every
+    thread a point; it grows again, up to 8, until the cloud fits in
+    registers, and a cloud that does not fit 8 CTAs streams. (On an H100 a
+    pick's exchange and merge grow with the cluster faster than its pass
+    over the points shrinks: at (32, 16384) -> 1024, two CTAs a cloud beat
+    four and eight.)"""
+    cluster = _FPS_CLUSTER
+    while cluster > 1 and (b * cluster > sms // 2 or cluster // 2 * _FPS_THREADS >= n):
+        cluster //= 2
+    while True:
+        need = -(-n // (cluster * _FPS_THREADS))
+        fits = [p for p in _FPS_PER_THREAD if p >= need]
+        if fits:
+            return cluster, fits[0]
+        if cluster == _FPS_MAX_CLUSTER:
+            return cluster, 0
+        cluster *= 2
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _fps_launch(xyz: torch.Tensor, npoint: int, cluster: int, per_thread: int) -> torch.Tensor:
+    """Launch K1 on the contiguous CUDA tensor ``xyz`` with this plan."""
+    b, n, _ = xyz.shape
+    idx = torch.empty((b, npoint), dtype=torch.int32, device=xyz.device)
+    scratch = (torch.empty((b, n), dtype=torch.float32, device=xyz.device)
+               if per_thread == 0 else None)
+    kernels.launch("fps", xyz.device, xyz, b, n, npoint, cluster, per_thread, scratch, idx)
+    return idx
+
+
 def _fps_cuda(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
     b, n, _ = xyz.shape
-    if n > _FPS_MAX_POINTS:
-        raise ValueError(f"FPS kernel takes at most {_FPS_MAX_POINTS} points a cloud, got {n}")
-    idx = torch.empty((b, npoint), dtype=torch.int32, device=xyz.device)
-    kernels.launch("fps", xyz.device, xyz, b, n, npoint, idx)
-    return idx
+    return _fps_launch(xyz, npoint, *_fps_plan(b, n, _sm_count(xyz.device)))
 
 
 def farthest_point_sample(npoint: int, xyz: torch.Tensor) -> torch.Tensor:

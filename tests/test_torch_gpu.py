@@ -81,7 +81,9 @@ def test_nn_dyn_kernel_equals_plain(cuda, case):
     q, t = (torch.from_numpy(a) for a in _sorted_cases()[case])
     qs, _ = chamfer.sort_by_z_with_order(q)
     ts, _ = chamfer.sort_by_z_with_order(t)
+    before = kernels.launches["nn_dyn"]
     kd, ki = chamfer.nn_dyn(qs.to(cuda), ts.to(cuda))
+    assert kernels.launches["nn_dyn"] == before + 1
     pd, pi = chamfer.nn_dyn(qs, ts)  # CPU: the full plain scan
     # same sum-of-squares chain, lowest index on ties: bit-equal
     torch.testing.assert_close(kd.cpu(), pd, rtol=0, atol=0)
@@ -393,3 +395,157 @@ def test_emd_cost_kernel_band_skip(cuda, extent, n, m):
     every_pair = emd._approx_match_cost_kernel(x1.to(cuda), x2.to(cuda), band_skip=False)
     torch.testing.assert_close(got, every_pair, rtol=0, atol=0)
     torch.testing.assert_close(got.cpu(), emd.approx_match_cost(x1, x2), rtol=2e-4, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# K1's cluster forms and K3's slab walk at their edges
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("b,n,npoint,cluster", [
+    (1, 40000, 64, 8), (1, 5000, 64, 4), (20, 3000, 32, 2), (100, 700, 50, 1), (1, 70000, 64, 8),
+])
+def test_fps_kernel_takes_every_cluster_size(cuda, b, n, npoint, cluster):
+    """Each cluster size the wrapper chooses on this card (8 only where 4
+    CTAs cannot hold the cloud), and the streaming form at n = 70 000 (more
+    than 8 CTAs hold in registers): identical indices, one launch."""
+    plan = fps._fps_plan(b, n, fps._sm_count(cuda))
+    assert plan[0] == cluster and (plan[1] == 0) == (n > 8 * 256 * 32), plan
+    (x,) = _clouds(20 + b, (b, n, 3))
+    before = kernels.launches["fps"]
+    got = fps.farthest_point_sample(npoint, x.to(cuda)).cpu()
+    assert kernels.launches["fps"] == before + 1
+    torch.testing.assert_close(got, fps._fps_plain(x, npoint), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("b,n,npoint,plan", [
+    (2, 5, 5, (8, 1)),  # n < C: three CTAs hold no point
+    (3, 3001, 40, (4, 4)),  # n not a multiple of C x threads
+    (2, 3001, 40, (2, 8)),
+    (2, 3001, 40, (2, 0)),  # the streaming form at a small size
+    (1, 9000, 30, (8, 0)),
+    (2, 300, 300, (4, 1)),  # npoint = n: the last picks have minimum 0
+    (1, 60000, 16, (8, 32)),  # beyond the old kernel's 58 044 points
+])
+def test_fps_kernel_forms_equal_plain(cuda, b, n, npoint, plan):
+    (x,) = _clouds(30 + n, (b, n, 3))
+    got = fps._fps_launch(x.to(cuda), npoint, *plan).cpu()
+    torch.testing.assert_close(got, fps._fps_plain(x, npoint), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("plan", [(4, 1), (8, 1), (2, 2), (8, 0)])
+def test_fps_kernel_ties_across_ctas(cuda, plan):
+    """The same points in every CTA's range, on a coarse grid: equal minima
+    across CTAs, warps and lanes at every pick; the lowest index wins."""
+    rng = np.random.RandomState(40)
+    unit = (rng.randint(0, 4, (2, 250, 3)) / 4.0).astype(np.float32)
+    x = torch.from_numpy(np.concatenate([unit] * 4, axis=1))  # 1000 points, CTA r holds copy r
+    got = fps._fps_launch(x.to(cuda), 200, *plan).cpu()
+    want = fps._fps_plain(x, 200)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert int(want.max()) < 250  # the first copy wins every tie
+
+
+def test_fps_kernel_refuses_a_short_plan(cuda):
+    (x,) = _clouds(41, (1, 3000, 3))
+    with pytest.raises(RuntimeError):
+        fps._fps_launch(x.to(cuda), 8, 1, 4)  # 1 024 points of room for 3 000
+    with pytest.raises(RuntimeError):
+        fps._fps_launch(x.to(cuda), 8, 3, 4)  # not a power of two
+
+
+def _z_sorted(a):
+    a = np.asarray(a, np.float32)
+    return a[np.arange(a.shape[0])[:, None], np.argsort(a[..., 2], axis=1, kind="stable")]
+
+
+def _walk_cases():
+    """Sorted clouds for K3's walk: the random-init regime (a blob against a
+    spread cloud, both ways), a walk across many slabs on each side that
+    ends before the cloud does, exact duplicates on either side of each slab
+    boundary, all z equal, a tie exactly at the down side's frontier gap,
+    and ragged sizes (m < S, m not a multiple of S, n < 32)."""
+    rng = np.random.RandomState(50)
+    spread = _z_sorted(rng.rand(2, 16384, 3) * 2.0 - 1.0)
+    blob = _z_sorted(0.02 * rng.randn(2, 16384, 3))
+    line = np.zeros((1, 8192, 3), np.float32)
+    line[0, :, 2] = np.sort(rng.rand(8192)).astype(np.float32)
+    q_line = _z_sorted(np.stack([np.full(300, 0.2), 0.01 * rng.randn(300),
+                                 0.45 + 0.1 * rng.rand(300)], -1)[None])
+    dup = _z_sorted(rng.rand(1, 1100, 3))
+    for k in (127, 255, 511, 767, 1023):  # equal to the next point: ties across slabs
+        dup[0, k + 1] = dup[0, k]
+    q_dup = _z_sorted(np.concatenate([dup[:, 100:1100:3], dup[:, 120:1100:7] + 1e-3], 1))
+    # the last target of the lowest of three slabs and the first of the
+    # highest at exactly one distance from every query, all else far: the
+    # walk starts in the highest slab and loads the middle one before it has
+    # a best; only the down side's equality test reaches the lower index
+    slab = chamfer._NN_DYN_SLAB
+    tie = np.stack([np.full(3 * slab, 5.0), np.zeros(3 * slab),
+                    np.concatenate([np.linspace(0.0, 0.25, slab), np.linspace(0.3, 0.45, slab),
+                                    np.linspace(0.75, 1.0, slab)])], -1)[None].astype(np.float32)
+    tie[0, [slab - 1, 2 * slab], 0] = 0.0
+    flat_q = rng.rand(1, 700, 3).astype(np.float32)
+    flat_t = rng.rand(1, 1000, 3).astype(np.float32)
+    flat_q[..., 2] = flat_t[..., 2] = 0.25
+    return {
+        "blob->spread": (blob, spread),
+        "spread->blob": (spread, blob),
+        "line, many slabs each side": (q_line, line),
+        "duplicates across slab boundaries": (q_dup, dup),
+        "all z equal": (flat_q, flat_t),
+        "tie at the down frontier": (np.tile(np.float32([0.0, 0.0, 0.5]), (1, 10, 1)), tie),
+        "m < S": (_z_sorted(rng.rand(3, 600, 3)), _z_sorted(rng.rand(3, 100, 3))),
+        "m not a multiple of S": (_z_sorted(rng.rand(2, 513, 3)), _z_sorted(rng.rand(2, 700, 3))),
+        "n < 32": (_z_sorted(rng.rand(4, 5, 3)), _z_sorted(rng.rand(4, 3000, 3))),
+    }
+
+
+WALK_CASES = sorted(_walk_cases())
+
+
+@pytest.mark.parametrize("name", WALK_CASES)
+def test_nn_dyn_walk_edges_equal_plain_and_k7(cuda, name):
+    from rfnet_tpu_torch.ops import chamfer_pruned
+
+    slab = chamfer._NN_DYN_SLAB
+    q, t = (torch.from_numpy(a) for a in _walk_cases()[name])
+    before = kernels.launches["nn_dyn"]
+    kd, ki = chamfer.nn_dyn(q.to(cuda), t.to(cuda))
+    assert kernels.launches["nn_dyn"] == before + 1
+    pd, pi = chamfer._nn_sorted_plain(q, t)
+    torch.testing.assert_close(kd.cpu(), pd, rtol=0, atol=0)
+    torch.testing.assert_close(ki.cpu(), pi, rtol=0, atol=0)
+    dd, di = chamfer_pruned.nn_pruned(q.to(cuda), t.to(cuda))
+    torch.testing.assert_close(kd, dd, rtol=0, atol=0)
+    torch.testing.assert_close(ki, di, rtol=0, atol=0)
+    if name == "line, many slabs each side":
+        # the exact z-window of every query reaches at least 3 slabs past
+        # its own on each side, and stops short of the cloud's ends
+        tz, qz = t[0, :, 2].contiguous(), q[0, :, 2].contiguous()
+        r = torch.sqrt(pd[0].double()).float()
+        lo = torch.searchsorted(tz, qz - r) // slab
+        hi = torch.searchsorted(tz, qz + r) // slab
+        own = torch.searchsorted(tz, qz) // slab
+        assert int((own - lo).min()) >= 3 and int((hi - own).min()) >= 3
+        assert int(lo.min()) > 0 and int(hi.max()) < (t.shape[1] - 1) // slab
+    if name == "duplicates across slab boundaries":
+        assert set(pi[0].tolist()) & {127, 255, 511, 767, 1023}  # ties resolved low
+    if name == "tie at the down frontier":
+        assert set(pi[0].tolist()) == {slab - 1}
+
+
+@pytest.mark.parametrize("case", range(9))
+def test_nn_dyn_kernel_tiled_cases_equal_plain_and_k7(cuda, case):
+    from rfnet_tpu_torch.ops import chamfer_pruned
+
+    q, t = (torch.from_numpy(a) for a in _tiled_cases()[case])
+    qs, _ = chamfer.sort_by_z_with_order(q)
+    ts, _ = chamfer.sort_by_z_with_order(t)
+    kd, ki = chamfer.nn_dyn(qs.to(cuda), ts.to(cuda))
+    pd, pi = chamfer._nn_sorted_plain(qs, ts)
+    torch.testing.assert_close(kd.cpu(), pd, rtol=0, atol=0)
+    torch.testing.assert_close(ki.cpu(), pi, rtol=0, atol=0)
+    dd, di = chamfer_pruned.nn_pruned(qs.to(cuda), ts.to(cuda))
+    torch.testing.assert_close(kd, dd, rtol=0, atol=0)
+    torch.testing.assert_close(ki, di, rtol=0, atol=0)
