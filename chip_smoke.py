@@ -9,8 +9,10 @@
    plain version and a one-call PyTorch yardstick with CUDA events: K1 FPS,
    K2 NN + coords and K3 early-exit NN at the serving path's shapes
    (batch 4); K1, K2, K3, K4 dense NN, K5 chamfer-backward scatter and K6
-   approx-EMD cost at the trainer's shapes (batch 32, eval batch 4); K1
-   with its cluster size, its form (registers or streaming) and its chain
+   approx-EMD cost at the trainer's shapes (batch 32, eval batch 4); K2 and
+   K4 bit for bit, with their launch plan, device time and the SASS issue
+   slots a pair of their scan; K1 with its cluster size, its form
+   (registers or streaming) and its chain
    bound, also on 70 000 points; K3 with the share of pairs its blocks
    must scan, also on a random-init model's outputs; K7
    box-pruned NN and K8 best-first box-tile NN, bit for bit, at the losses'
@@ -259,39 +261,99 @@ def check_k1(x, npoint: int, iters: int) -> dict:
                 chain_bound_ms=chain_ms, exchange_us=exchange_us, cluster_barrier_us=barrier_us)
 
 
-def check_k2(q, t) -> dict:
-    """K2 against the plain dense scan: distances, and coordinates wherever
-    the indices agree; a differing index must be an exact tie."""
+_SASS_SLOTS: dict = {}
+
+
+def sass_slots_a_pair(coords: bool, per_thread: int) -> float | None:
+    """Issue slots a pair of K2's (``coords``) or K4's scan at
+    ``per_thread`` queries a thread: the instructions of the kernel's
+    innermost loop that holds the most fp32 multiplies and adds (its
+    unrolled body), read with ``cuobjdump -sass`` from the built library,
+    over the pairs that loop computes (7 FMUL or FADD a pair). None where
+    the toolkit has no cuobjdump."""
+    from rfnet_tpu_torch import kernels
+
+    if not _SASS_SLOTS:
+        tool = os.path.join(os.path.dirname(kernels._nvcc()), "cuobjdump")
+        if not os.path.exists(tool):
+            return None
+        sass = subprocess.run([tool, "-sass", kernels.build()], capture_output=True, text=True,
+                              check=True).stdout
+        for head, body in zip(*[iter(re.split(r"Function : (\S+)", sass)[1:])] * 2):
+            key = re.search(r"nn_scan_kernelILb([01])ELi(\d+)E", head)
+            if not key:
+                continue
+            ins = {int(a, 16): op for a, op in re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)}
+            loops = [(int(to, 16), at) for at, op in ins.items()
+                     for to in re.findall(r"BRA (?:!?P\d, )?0x([0-9a-f]+)", op) if int(to, 16) <= at]
+            best = (0, 0)
+            for lo, hi in loops:
+                if any(lo <= a and b <= hi and (a, b) != (lo, hi) for a, b in loops):
+                    continue  # not innermost
+                ops = [ins[a].split()[1 if ins[a].startswith("@") else 0]
+                       for a in sorted(ins) if lo <= a <= hi]
+                flops = sum(o.split(".")[0] in ("FMUL", "FADD") for o in ops)
+                best = max(best, (flops, len(ops)))
+            _SASS_SLOTS[(key.group(1) == "1", int(key.group(2)))] = best[1] / (best[0] / 7)
+    return _SASS_SLOTS.get((coords, per_thread))
+
+
+def sm_clock_hz() -> float:
+    """The card's highest SM clock (nvidia-smi clocks.max.sm)."""
+    return 1e6 * float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0])
+
+
+def check_scan(name: str, q, t) -> dict:
+    """K2 (``name`` "nn_coords") or K4 ("nn_dense") against the plain dense
+    scan on the card: distances bit for bit, indices wherever the card's
+    plain min did not break an exact tie another way (there the two picks
+    must be equally near), and K2's coordinates equal to target[idx]; returns
+    its row, with the launch plan, the device time and the SASS issue slots
+    a pair beside the operation bound and the issue floor (those slots at
+    128 a cycle on every SM at the card's highest clock)."""
     import torch
 
-    from rfnet_tpu_torch.ops import chamfer
+    from rfnet_tpu_torch.ops import chamfer, fps
 
+    coords = name == "nn_coords"
+    label, fn = ("K2", chamfer.nn_coords) if coords else ("K4", chamfer.nn_dense)
     b, nq, m = q.shape[0], q.shape[1], t.shape[1]
-    kd, ki, kc = chamfer.nn_coords(q, t)
+    sms = fps._sm_count(q.device)
+    plan = chamfer._nn_scan_plan(b, nq, m, sms)
+    out = fn(q, t)
     pd, pi = chamfer._one_sided(q, t)
-    pc = chamfer._gather_rows(t, pi)
     torch.cuda.synchronize()
+    kd, ki = out[0], out[1]
+    shape = f"({b},{nq})->{m}"
     err = float((kd - pd).abs().max())
+    check(err == 0.0, f"{label} {shape}: distances differ from the plain scan by {err}")
+    picked = chamfer._gather_rows(t, ki)
+    check(not coords or torch.equal(out[2], picked), f"{label} {shape}: coordinates differ")
     same = ki == pi
-    # both run one op chain, so 0 is expected; 1e-6 absolute leaves room
-    # only for a rounding difference, at distances of order 1e-4..1e-1
-    check(err <= 1e-6, f"K2 ({b},{nq})->{m}: distances differ by {err}")
-    check(bool(torch.equal(kc[same], pc[same])), f"K2 ({b},{nq})->{m}: coordinates differ")
-    # where the indices differ the two picks must be equally near
-    tie_gap = ((kc - q).square().sum(-1) - (pc - q).square().sum(-1))[~same]
+    tie_gap = ((picked - q).square().sum(-1)
+               - (chamfer._gather_rows(t, pi) - q).square().sum(-1))[~same]
     check(tie_gap.numel() == 0 or float(tie_gap.abs().max()) <= 1e-6,
-          f"K2 ({b},{nq})->{m}: a differing pick is not a tie")
+          f"{label} {shape}: a differing pick is not a tie")
     agree = float(same.float().mean())
-    check(agree >= 0.999, f"K2 ({b},{nq})->{m}: indices agree on only {agree:.6f}")
-    ms = cuda_ms(lambda: chamfer.nn_coords(q, t), 20)
+    check(agree >= 0.999, f"{label} {shape}: indices agree on only {agree:.6f}")
+    ms = cuda_ms(lambda: fn(q, t), 20)
+    dev_ms = device_ms(lambda: fn(q, t), 10, f"nn_scan_kernel<{str(coords).lower()}")
     plain_ms = cuda_ms(lambda: chamfer._one_sided(q, t), 3)
     lib_ms = cuda_ms(lambda: torch.cdist(q, t).min(-1), 10)
-    b_ms, b_by = bound(9.0 * b * nq * m, 4.0 * b * (3 * nq + 3 * m + 5 * nq))
-    print(f"K2 nn_coords ({b},{nq},3)x({b},{m},3): max|dd| {err:.3g}, index agreement "
-          f"{agree:.6f}, coords equal where indices agree; kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, cdist.min {lib_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
+    b_ms, b_by = bound(9.0 * b * nq * m, 4.0 * b * (3 * nq + 3 * m + (5 if coords else 2) * nq))
+    slots = sass_slots_a_pair(coords, plan[0])
+    floor_ms = None if slots is None else slots * b * nq * m / (sms * 128 * sm_clock_hz()) * 1e3
+    print(f"{label} {name} ({b},{nq},3)x({b},{m},3): distances bit-equal, index agreement "
+          f"{agree:.6f}{', coordinates = target[idx]' if coords else ''}; plan (R, G, W, C, "
+          f"tiles) {plan}; kernel {ms:.4f} ms ({fmt_ms(dev_ms)} on the card alone), plain "
+          f"{plain_ms:.4f} ms, cdist.min {lib_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}); SASS "
+          f"{'not measured' if slots is None else f'{slots:.3f}'} issue slots a pair, issue "
+          f"floor {fmt_ms(floor_ms)} ms")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=lib_ms)
+                library_ms=lib_ms, device_ms=dev_ms, plan=list(plan), index_agreement=agree,
+                sass_slots_a_pair=slots, issue_floor_ms=floor_ms)
 
 
 def check_kernels(dev):
@@ -315,7 +377,7 @@ def check_kernels(dev):
     # K2: the three merge scans, 64 / 1024 / 16384 queries into the input
     for nq in (64, 1024, 16384):
         record(rows, "nn_coords", f"({B},{nq},3)x({B},3000,3)",
-               check_k2(out[:, :nq].contiguous(), partial), main=nq == 16384)
+               check_scan("nn_coords", out[:, :nq].contiguous(), partial), main=nq == 16384)
 
     # K3: the eval metrics' three sorted scans
     gts, _ = chamfer.sort_by_z_with_order(gt)
@@ -453,35 +515,12 @@ def check_train_kernels(dev, rows: dict) -> None:
     # K2: the three merge scans of the forward, outputs into the input
     for nq in (64, 1024, 16384):
         record(rows, "nn_coords", f"(32,{nq},3)x(32,3000,3)",
-               check_k2(out_a[:, :nq].contiguous(), partial))
+               check_scan("nn_coords", out_a[:, :nq].contiguous(), partial))
 
     # K4: zero_groupnear's two scans, rawpts -> ptcens
     for q, t in ((gt2, gt1), (gt, gt2)):
-        b, nq, m = q.shape[0], q.shape[1], t.shape[1]
-        kd, ki = chamfer.nn_dense(q, t)
-        pd, pi = chamfer._one_sided(q, t)
-        torch.cuda.synchronize()
-        err = float((kd - pd).abs().max())
-        check(err == 0.0, f"K4 {nq}->{m}: distances differ from the plain scan by {err}")
-        same = ki == pi
-        # where the indices differ (an exact tie, found in another order by
-        # the plain min) the two picks must be equally near
-        tq = q[~same]
-        tie_gap = ((chamfer._gather_rows(t, ki)[~same] - tq).square().sum(-1)
-                   - (chamfer._gather_rows(t, pi)[~same] - tq).square().sum(-1))
-        check(tie_gap.numel() == 0 or float(tie_gap.abs().max()) <= 1e-6,
-              f"K4 {nq}->{m}: a differing pick is not a tie")
-        agree = float(same.float().mean())
-        ms = cuda_ms(lambda: chamfer.nn_dense(q, t), 20)
-        plain_ms = cuda_ms(lambda: chamfer._one_sided(q, t), 3)
-        lib_ms = cuda_ms(lambda: torch.cdist(q, t).min(-1), 10)
-        b_ms, b_by = bound(9.0 * b * nq * m, 4.0 * b * (3 * nq + 3 * m + 2 * nq))
-        print(f"K4 nn_dense ({b},{nq},3)x({b},{m},3): distances bit-equal, index agreement "
-              f"{agree:.6f}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, cdist.min "
-              f"{lib_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
-        record(rows, "nn_dense", f"({b},{nq},3)x({b},{m},3)",
-               dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                    library_ms=lib_ms), main=nq == 16384)
+        record(rows, "nn_dense", f"({q.shape[0]},{q.shape[1]},3)x({t.shape[0]},{t.shape[1]},3)",
+               check_scan("nn_dense", q, t), main=q.shape[1] == 16384)
 
     # K3 at the loss's shapes: the pair (gt twice, out3 and out4 stacked)
     # both ways, and re_chamfer's slices folded into the batch both ways

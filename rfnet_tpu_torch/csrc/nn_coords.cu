@@ -7,8 +7,11 @@
 
 #include "nn_scan.cuh"
 
-extern "C" int rfnet_nn_coords(const void* query, const void* target, int b, int n,
-                               int m, void* dist, void* idx, void* coords,
-                               void* stream) {
-  return rfnet::nn_scan_launch<true>(query, target, b, n, m, dist, idx, coords, stream);
+// The plan (per_thread = R, groups = G, warps = W, cluster = C, tiles) is
+// ops/chamfer.py:_nn_scan_plan's; nn_scan.cuh says what each part means.
+extern "C" int rfnet_nn_coords(const void* query, const void* target, int b, int n, int m,
+                               int per_thread, int groups, int warps, int cluster, int tiles,
+                               void* dist, void* idx, void* coords, void* stream) {
+  return rfnet::nn_scan_launch<true>(query, target, b, n, m, per_thread, groups, warps, cluster,
+                                     tiles, dist, idx, coords, stream);
 }

@@ -10,7 +10,10 @@
 
 #include "nn_scan.cuh"
 
+// The plan as for rfnet_nn_coords (nn_coords.cu).
 extern "C" int rfnet_nn_dense(const void* query, const void* target, int b, int n, int m,
+                              int per_thread, int groups, int warps, int cluster, int tiles,
                               void* dist, void* idx, void* stream) {
-  return rfnet::nn_scan_launch<false>(query, target, b, n, m, dist, idx, nullptr, stream);
+  return rfnet::nn_scan_launch<false>(query, target, b, n, m, per_thread, groups, warps, cluster,
+                                      tiles, dist, idx, nullptr, stream);
 }

@@ -44,12 +44,15 @@ _SIGNATURES = {
     # xyz, b, n, npoint, CTAs a cloud, points a thread (0 = streaming),
     # scratch (streaming form), idx_out, stream
     "fps": (_P, _I, _I, _I, _I, _I, _P, _P, _P),
-    # query, target, b, n, m, dist_out, idx_out, coords_out, stream
-    "nn_coords": (_P, _P, _I, _I, _I, _P, _P, _P, _P),
+    # query, target, b, n, m, the plan (queries a thread, query warps a CTA,
+    # warps splitting its targets, CTAs a cluster, tiles), dist_out, idx_out,
+    # coords_out, stream
+    "nn_coords": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P),
     # query_sorted, target_sorted, b, n, m, slab, dist_out, idx_out, stream
     "nn_dyn": (_P, _P, _I, _I, _I, _I, _P, _P, _P),
-    # query, target, b, n, m, dist_out, idx_out, stream
-    "nn_dense": (_P, _P, _I, _I, _I, _P, _P, _P),
+    # query, target, b, n, m, the plan as for nn_coords, dist_out, idx_out,
+    # stream
+    "nn_dense": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P),
     # x1, g, idx (int32), b, n, m, blocks a cloud, scratch, its ints a block,
     # sp_out, sw_out, stream
     "nn_grad": (_P, _P, _P, _I, _I, _I, _I, _P, _L, _P, _P, _P),

@@ -11,7 +11,8 @@ exact sorted-space scans in ``ops/chamfer_pruned.py`` (K7) and
   merge layer).
 * K4 (``csrc/nn_dense.cu``) — the same scan without the coordinates. It
   serves :func:`nearest_neighbor` (``zero_groupnear``) and both directions of
-  :func:`nn_distance`.
+  :func:`nn_distance`. K2 and K4 split the targets where the queries are too
+  few to fill the card; :func:`_nn_scan_plan` chooses how.
 * K3 (``csrc/nn_dyn.cu``) — the exact early-exit scan over z-sorted clouds,
   with distances taken as sums of squared differences and the lowest sorted
   index winning ties. It serves the eval metrics and the losses'
@@ -34,6 +35,7 @@ from __future__ import annotations
 import torch
 
 from rfnet_tpu_torch import kernels
+from rfnet_tpu_torch.ops.fps import _sm_count
 from rfnet_tpu_torch.ops.nn_grad import index_add_rows, nn_grad_scatter
 
 # Elements of one (b, chunk, m) temporary in the plain scans.
@@ -41,6 +43,14 @@ _PLAIN_CHUNK_ELEMS = 1 << 25
 # K3: consecutive sorted targets in one shared-memory slab (kSlab in
 # csrc/nn_dyn.cu, which refuses another value)
 _NN_DYN_SLAB = 256
+# K2/K4 (csrc/nn_scan.cuh, which checks them): warps a CTA, CTAs a cluster
+# and bytes of shared memory a block may have; then the plan's aims: live
+# warps an SM, and the fewest targets a warp scans where the targets are split
+_NN_SCAN_WARPS = 8
+_NN_SCAN_CLUSTER = 8
+_NN_SCAN_SHARED = 232448
+_NN_SCAN_WARPS_PER_SM = 8
+_NN_SCAN_MIN_CHAIN = 32
 
 
 def _check_pair(query: torch.Tensor, target: torch.Tensor) -> None:
@@ -111,6 +121,80 @@ def _gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(x, 1, idx.long()[..., None].expand(-1, -1, x.shape[-1]))
 
 
+def _nn_scan_shared(m: int, plan: tuple[int, int, int, int, int]) -> int:
+    """Bytes of shared memory a CTA of K2/K4 takes under ``plan``: its
+    range's tile (two where the range is tiled) and, where the targets are
+    split, an (e, j) partial for each query slot (mirrors
+    ``csrc/nn_scan.cuh:nn_scan_shared_bytes``)."""
+    r, g, w, c, tiles = plan
+    tile = -(-(-(-m // c)) // tiles)
+    part = 8 * 32 * r * g * w if w * c > 1 else 0
+    return (1 if tiles == 1 else 2) * 16 * tile + part
+
+
+def _nn_scan_fill(b: int, n: int, m: int, r: int, w: int, c: int, sms: int):
+    """The plan (R, G, W, C, tiles) of K2/K4 with R, W and C chosen: G, the
+    query warps a CTA, is the largest power of two the CTA has room for
+    (G·W ≤ 8) that the cloud's query warps fill and that leaves at least
+    ``sms`` CTAs (1 where even that leaves fewer); the CTA's range of
+    ``ceil(m / C)`` targets is staged whole where it fits shared memory,
+    else in the fewest tiles two of which fit."""
+    qw = -(-n // (32 * r))
+    g = min(_NN_SCAN_WARPS // w, 1 << (qw - 1).bit_length())
+    while g > 1 and b * -(-qw // g) * c < sms:
+        g //= 2
+    tiles = 1
+    while _nn_scan_shared(m, (r, g, w, c, tiles)) > _NN_SCAN_SHARED:
+        tiles += 1
+    return r, g, w, c, tiles
+
+
+def _nn_scan_plan(b: int, n: int, m: int, sms: int) -> tuple[int, int, int, int, int]:
+    """K2/K4's launch for ``b`` clouds of ``n`` queries and ``m`` targets on
+    a card with ``sms`` SMs: (R queries a thread, G query warps a CTA, W
+    warps that split a CTA's targets, C CTAs of a cluster that split the
+    cloud's targets, tiles a CTA stages its range in). Plain Python.
+
+    R is 8 where one warp a cloud per 256 queries already gives
+    ``_NN_SCAN_WARPS_PER_SM`` live warps an SM, else 4. The split S = W·C
+    doubles, up to 64, while the live warps (b · query warps · S) are fewer
+    than that and a warp keeps at least ``_NN_SCAN_MIN_CHAIN`` targets, so a
+    chain that is long enough is never cut. The warps of a CTA take a split
+    up to 8 (W = S, C = 1); a larger one spreads over clusters of 8 CTAs
+    (C = 8, W = S / 8). (On an H100 the block scheduler packs clusters onto
+    few SMs: at (32,1024)→3000, 256 CTAs of 8 warps in clusters of 8 took
+    0.0659 ms, the same split within CTAs 0.0436.) :func:`_nn_scan_fill`
+    chooses G and the tiles."""
+    aim = _NN_SCAN_WARPS_PER_SM * sms
+    r = 8 if b * -(-n // 256) >= aim else 4
+    qw = -(-n // (32 * r))
+    s = 1
+    while (s < _NN_SCAN_WARPS * _NN_SCAN_CLUSTER and b * qw * s < aim
+           and -(-m // (2 * s)) >= _NN_SCAN_MIN_CHAIN):
+        s *= 2
+    c = 1 if s <= _NN_SCAN_WARPS else _NN_SCAN_CLUSTER
+    return _nn_scan_fill(b, n, m, r, s // c, c, sms)
+
+
+def _nn_scan_launch(name: str, query: torch.Tensor, target: torch.Tensor, plan):
+    """Launch K2 (``name`` "nn_coords") or K4 ("nn_dense") on contiguous
+    CUDA tensors under ``plan``: (dist² (b,n), idx (b,n) int32) and, for K2,
+    target[idx] (b,n,3). The kernel refuses a plan it cannot run."""
+    b, n, _ = query.shape
+    out = [torch.empty((b, n), dtype=torch.float32, device=query.device),
+           torch.empty((b, n), dtype=torch.int32, device=query.device)]
+    if name == "nn_coords":
+        out.append(torch.empty((b, n, 3), dtype=torch.float32, device=query.device))
+    kernels.launch(name, query.device, query, target, b, n, target.shape[1], *plan, *out)
+    return tuple(out)
+
+
+def _nn_scan_cuda(name: str, query: torch.Tensor, target: torch.Tensor):
+    b, n, _ = query.shape
+    plan = _nn_scan_plan(b, n, target.shape[1], _sm_count(query.device))
+    return _nn_scan_launch(name, query, target, plan)
+
+
 def nn_coords(query: torch.Tensor, target: torch.Tensor):
     """K2's wrapper: (dist² (b,n), idx (b,n) int32, target[idx] (b,n,3))."""
     _check_pair(query, target)
@@ -119,13 +203,7 @@ def nn_coords(query: torch.Tensor, target: torch.Tensor):
     if not query.is_cuda:
         d, i = _one_sided(query, target)
         return d, i, _gather_rows(target, i)
-    b, n, _ = query.shape
-    m = target.shape[1]
-    dist = torch.empty((b, n), dtype=torch.float32, device=query.device)
-    idx = torch.empty((b, n), dtype=torch.int32, device=query.device)
-    coords = torch.empty((b, n, 3), dtype=torch.float32, device=query.device)
-    kernels.launch("nn_coords", query.device, query, target, b, n, m, dist, idx, coords)
-    return dist, idx, coords
+    return _nn_scan_cuda("nn_coords", query, target)
 
 
 def nearest_neighbor_coords(query: torch.Tensor, target: torch.Tensor):
@@ -143,12 +221,7 @@ def nn_dense(query: torch.Tensor, target: torch.Tensor):
     target = target.detach().contiguous()
     if not query.is_cuda:
         return _one_sided(query, target)
-    b, n, _ = query.shape
-    m = target.shape[1]
-    dist = torch.empty((b, n), dtype=torch.float32, device=query.device)
-    idx = torch.empty((b, n), dtype=torch.int32, device=query.device)
-    kernels.launch("nn_dense", query.device, query, target, b, n, m, dist, idx)
-    return dist, idx
+    return _nn_scan_cuda("nn_dense", query, target)
 
 
 def nearest_neighbor(query: torch.Tensor, target: torch.Tensor):

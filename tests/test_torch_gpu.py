@@ -37,7 +37,8 @@ def test_fps_kernel_equals_plain(cuda, b, n, npoint):
     torch.testing.assert_close(got, fps._fps_plain(x, npoint), rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("n,m", [(64, 3000), (1024, 3000), (70, 150), (1, 1)])
+@pytest.mark.parametrize("n,m", [(64, 3000), (1024, 3000), (70, 150), (1, 1), (16384, 3000),
+                                 (300, 20000), (1, 3000), (3000, 7)])
 def test_nn_coords_kernel_equals_plain(cuda, n, m):
     q, t = _clouds(1, (2, n, 3), (2, m, 3))
     kd, ki, kc = chamfer.nn_coords(q.to(cuda), t.to(cuda))
@@ -176,7 +177,8 @@ def test_kernel_rejects_bad_input(cuda):
         chamfer.nn_dyn(q.to(cuda), t)  # devices differ
 
 
-@pytest.mark.parametrize("b,n,m", [(2, 1024, 64), (1, 16384, 1024), (2, 70, 150), (1, 1, 1)])
+@pytest.mark.parametrize("b,n,m", [(2, 1024, 64), (1, 16384, 1024), (2, 70, 150), (1, 1, 1),
+                                   (64, 70, 3000), (1, 64, 3000), (3, 1, 5), (32, 1024, 64)])
 def test_nn_dense_kernel_equals_plain(cuda, b, n, m):
     q, t = _clouds(5, (b, n, 3), (b, m, 3))
     before = kernels.launches["nn_dense"]
@@ -192,6 +194,112 @@ def test_nn_dense_kernel_duplicate_targets_first_index(cuda):
     q, t = _clouds(6, (1, 50, 3), (1, 90, 3))
     _, ki = chamfer.nearest_neighbor(q.to(cuda), torch.cat([t, t], 1).to(cuda))
     assert int(ki.max()) < 90
+
+
+# ---------------------------------------------------------------------------
+# K2 and K4 under every branch of their launch plan
+# ---------------------------------------------------------------------------
+
+# (b, n, m, plan (R, G, W, C, tiles)): each R, W > 1, C > 1, W and C > 1
+# together, the tiled range (m = 20 000, where one CTA's range overfills
+# shared memory) with a short last tile, and the wrapper's own plans at
+# n = 1, n not a multiple of 32 R, b = 1 with n = 64, and b = 64
+_SCAN_PLANS = [
+    (2, 300, 3000, (4, 2, 1, 1, 1)), (2, 300, 3000, (8, 1, 1, 1, 1)),
+    (2, 300, 3000, (8, 1, 8, 1, 1)), (1, 70, 150, (4, 2, 4, 1, 1)),
+    (2, 300, 3000, (4, 1, 1, 8, 1)), (3, 100, 1000, (8, 1, 2, 4, 1)),
+    (2, 40, 3000, (4, 1, 8, 8, 1)), (1, 300, 20000, (8, 1, 1, 1, 3)),
+    (1, 300, 20000, (4, 1, 2, 2, 2)), (1, 100, 20000, (4, 2, 4, 1, 4)),
+    (1, 1, 3000, None), (2, 333, 3000, None), (1, 64, 3000, None), (64, 64, 3000, None),
+    (4, 1024, 3000, None), (1, 300, 20000, None),
+]
+
+
+def _scan_both(cuda, q, t, plan):
+    """K2 and K4 on the card under ``plan`` (the wrapper's own where None),
+    each launched once, and the CPU plain version: [(dist, idx, coords or
+    None) of K2, of K4], and the plain (dist, idx)."""
+    got = []
+    for name in ("nn_coords", "nn_dense"):
+        before = kernels.launches[name]
+        qc, tc = q.to(cuda), t.to(cuda)
+        if plan is None:
+            res = chamfer.nn_coords(qc, tc) if name == "nn_coords" else chamfer.nn_dense(qc, tc)
+        else:
+            res = chamfer._nn_scan_launch(name, qc, tc, plan)
+        assert kernels.launches[name] == before + 1
+        got.append(tuple(x.cpu() for x in res) + (None,) * (3 - len(res)))
+    return got, chamfer._one_sided(q, t)
+
+
+@pytest.mark.parametrize("b,n,m,plan", _SCAN_PLANS)
+def test_nn_scan_kernel_plans_equal_plain(cuda, b, n, m, plan):
+    q, t = _clouds(60 + n + b, (b, n, 3), (b, m, 3))
+    got, (pd, pi) = _scan_both(cuda, q, t, plan)
+    for kd, ki, kc in got:
+        torch.testing.assert_close(kd, pd, rtol=0, atol=0)
+        torch.testing.assert_close(ki, pi, rtol=0, atol=0)
+        if kc is not None:
+            torch.testing.assert_close(kc, chamfer._gather_rows(t, pi), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("plan", [(4, 1, 4, 8, 1), (8, 1, 8, 1, 1), (4, 1, 2, 2, 3), None])
+def test_nn_scan_kernel_lower_copy_wins_across_splits(cuda, plan):
+    """Targets copied across the boundaries of warps' and CTAs' shares
+    (and, at m = 3000 under (4, 1, 4, 8, 1), from the first CTA to the last
+    of the cluster), queries on the copies: every tie goes to the lower
+    copy, whichever split finishes first. A cloud of one repeated point
+    returns index 0 everywhere."""
+    (t,) = _clouds(70, (2, 3000, 3))
+    pairs = [(93, 94), (374, 375), (5, 2999), (749, 750), (1000, 1874), (0, 1500), (2624, 2625)]
+    for lo, hi in pairs:
+        t[:, hi] = t[:, lo]
+    q = t[:, [lo for lo, _ in pairs] + [hi for _, hi in pairs]].clone()
+    got, (pd, pi) = _scan_both(cuda, q, t, plan)
+    lows = torch.tensor([lo for lo, _ in pairs] * 2, dtype=torch.int32)
+    assert torch.equal(pi, lows.expand(2, -1))
+    for kd, ki, _ in got:
+        torch.testing.assert_close(kd, pd, rtol=0, atol=0)
+        torch.testing.assert_close(ki, pi, rtol=0, atol=0)
+    same = torch.full((1, 3000, 3), 0.375)
+    got, (pd, pi) = _scan_both(cuda, q[:1], same, plan)
+    assert int(pi.abs().max()) == 0
+    for kd, ki, kc in got:
+        torch.testing.assert_close(kd, pd, rtol=0, atol=0)
+        torch.testing.assert_close(ki, pi, rtol=0, atol=0)
+
+
+def test_nn_scan_kernel_unaligned_clouds(cuda):
+    """Clouds whose base is not 16-byte aligned (4 bytes past a boundary,
+    and a slice of the batch that starts 12 bytes past one): bit-equal,
+    under split plans too."""
+    q, t = _clouds(71, (3, 500, 3), (3, 3002, 3))
+    qa = torch.empty(1 + q.numel(), device=cuda)[1:].view(q.shape).copy_(q)
+    ta = torch.empty(1 + t.numel(), device=cuda)[1:].view(t.shape).copy_(t)
+    for qs, ts in ((qa, ta), (qa[1:], ta[1:])):
+        assert qs.is_contiguous() and ts.is_contiguous() and ts.data_ptr() % 16 in (4, 12)
+        pd, pi = chamfer._one_sided(qs.cpu(), ts.cpu())
+        for plan in (None, (4, 1, 4, 8, 1), (8, 1, 2, 2, 2)):
+            for name in ("nn_coords", "nn_dense"):
+                if plan is not None:
+                    res = chamfer._nn_scan_launch(name, qs, ts, plan)
+                else:
+                    res = chamfer.nn_coords(qs, ts) if name == "nn_coords" else chamfer.nn_dense(qs, ts)
+                torch.testing.assert_close(res[0].cpu(), pd, rtol=0, atol=0)
+                torch.testing.assert_close(res[1].cpu(), pi, rtol=0, atol=0)
+                if name == "nn_coords":
+                    torch.testing.assert_close(res[2].cpu(), chamfer._gather_rows(ts.cpu(), pi),
+                                               rtol=0, atol=0)
+
+
+def test_nn_scan_kernel_refuses_a_bad_plan(cuda):
+    q, t = (x.to(cuda) for x in _clouds(72, (1, 64, 3), (1, 20000, 3)))
+    for name in ("nn_coords", "nn_dense"):
+        for plan in ((8, 1, 1, 1, 1),   # 20 000 targets in one tile: 320 000 bytes
+                     (4, 1, 1, 1, 0), (3, 1, 1, 1, 1), (4, 4, 4, 1, 1), (4, 1, 3, 1, 1),
+                     (4, 1, 1, 16, 1)):
+            with pytest.raises(RuntimeError, match=f"rfnet_{name} failed"):
+                chamfer._nn_scan_launch(name, q, t, plan)
 
 
 def _scatter_cases(b, n, m, seed):
