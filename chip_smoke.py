@@ -92,15 +92,17 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int, kernel: str) -> float | None:
+def device_ms(fn, iters: int, kernel: str | tuple) -> float | None:
     """Device time a call of ``fn`` spends in the kernels whose name contains
-    ``kernel``, from ``torch.profiler``: what the card takes, however long the
+    ``kernel`` (or one of a tuple of names), from ``torch.profiler``: what the
+    card takes, however long the
     host needs to launch. None where the profiler recorded no device event
     in two tries (its tracing may be unavailable on a machine): the number
     is a side reading, and no check rests on it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    names = (kernel,) if isinstance(kernel, str) else kernel
     fn()
     torch.cuda.synchronize()
     for _ in range(2):
@@ -109,7 +111,8 @@ def device_ms(fn, iters: int, kernel: str) -> float | None:
                 fn()
             torch.cuda.synchronize()
         us = sum(e.device_time_total for e in prof.key_averages()
-                 if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.key)
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and any(k in e.key for k in names))
         if us > 0:
             return us / 1e3 / iters
     seen = sorted({e.key for e in prof.key_averages()})
@@ -261,26 +264,25 @@ def check_k1(x, npoint: int, iters: int) -> dict:
                 chain_bound_ms=chain_ms, exchange_us=exchange_us, cluster_barrier_us=barrier_us)
 
 
-_SASS_SLOTS: dict = {}
+_SASS_LOOPS: dict = {}
 
 
-def sass_slots_a_pair(coords: bool, per_thread: int) -> float | None:
-    """Issue slots a pair of K2's (``coords``) or K4's scan at
-    ``per_thread`` queries a thread: the instructions of the kernel's
-    innermost loop that holds the most fp32 multiplies and adds (its
-    unrolled body), read with ``cuobjdump -sass`` from the built library,
-    over the pairs that loop computes (7 FMUL or FADD a pair). None where
-    the toolkit has no cuobjdump."""
+def _sass_innermost(kernel: str) -> dict:
+    """For each instantiation of ``kernel`` (its template arguments, as the
+    mangled name's ``Lb``/``Li`` values) in the built library: (fp32
+    multiplies and adds, instructions) of its innermost loop that holds the
+    most fp32 multiplies and adds, read with ``cuobjdump -sass``. Empty
+    where the toolkit has no cuobjdump."""
     from rfnet_tpu_torch import kernels
 
-    if not _SASS_SLOTS:
+    if not _SASS_LOOPS:
         tool = os.path.join(os.path.dirname(kernels._nvcc()), "cuobjdump")
         if not os.path.exists(tool):
-            return None
+            return {}
         sass = subprocess.run([tool, "-sass", kernels.build()], capture_output=True, text=True,
                               check=True).stdout
         for head, body in zip(*[iter(re.split(r"Function : (\S+)", sass)[1:])] * 2):
-            key = re.search(r"nn_scan_kernelILb([01])ELi(\d+)E", head)
+            key = re.search(r"([A-Za-z_]+kernel)I((?:L[bi]\d+E)+)E", head)
             if not key:
                 continue
             ins = {int(a, 16): op for a, op in re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)}
@@ -294,8 +296,30 @@ def sass_slots_a_pair(coords: bool, per_thread: int) -> float | None:
                        for a in sorted(ins) if lo <= a <= hi]
                 flops = sum(o.split(".")[0] in ("FMUL", "FADD") for o in ops)
                 best = max(best, (flops, len(ops)))
-            _SASS_SLOTS[(key.group(1) == "1", int(key.group(2)))] = best[1] / (best[0] / 7)
-    return _SASS_SLOTS.get((coords, per_thread))
+            args = tuple(int(v) for v in re.findall(r"L[bi](\d+)E", key.group(2)))
+            _SASS_LOOPS.setdefault(key.group(1), {})[args] = best
+    return _SASS_LOOPS.get(kernel, {})
+
+
+def sass_slots_a_pair(coords: bool, per_thread: int) -> float | None:
+    """Issue slots a pair of K2's (``coords``) or K4's scan at
+    ``per_thread`` queries a thread: the instructions of the scan's innermost
+    loop that holds the most fp32 multiplies and adds (its unrolled body)
+    over the pairs that loop computes (7 FMUL or FADD a pair). None where
+    the toolkit has no cuobjdump."""
+    loop = _sass_innermost("nn_scan_kernel").get((int(coords), per_thread))
+    return None if loop is None else loop[1] / (loop[0] / 7)
+
+
+def sass_tiles_slots_a_pair(best_first: bool) -> float | None:
+    """Issue slots a pair of K8's (``best_first``) or K7's chunk loop: every
+    instruction of the loop (the chunk's box test and vote, its 32 unrolled
+    targets, the merge) over the 32 x 2 pairs a chunk it scans holds at two
+    queries a thread. None where the toolkit has no cuobjdump."""
+    from rfnet_tpu_torch.ops import chamfer
+
+    loop = _sass_innermost("nn_tiles_kernel").get((int(best_first),))
+    return None if loop is None else loop[1] / (32 * chamfer._NN_TILES_R)
 
 
 def sm_clock_hz() -> float:
@@ -468,7 +492,8 @@ def check_k6(name: str, x1, x2) -> dict:
     no_skip_ms = cuda_ms(lambda: emd._approx_match_cost_kernel(x1, x2, band_skip=False), 3,
                          warmup=1)
     prep_ms = cuda_ms(lambda: emd._morton_sorted_pair(x1, x2), 5)
-    dev_ms = device_ms(lambda: emd.approx_match_cost(x1, x2), 3, "emd_")
+    dev_ms = device_ms(lambda: emd.approx_match_cost(x1, x2), 3,
+                       ("emd_", "run_boxes_kernel"))
     plain_ms = cuda_ms(lambda: emd._approx_match_cost_plain(x1, x2), 1, warmup=0)
     # per pair: d2 and its root once (9 ops), then per level exp, the row and
     # column sums, delta, its cost and its row sum (10 ops) over 10 levels;
@@ -824,21 +849,61 @@ def forward_throughput(dev):
     print(f"forward b32: {dt * 1e3:.3f} ms/batch, {32 / dt:.1f} clouds/s")
 
 
+# the box pass and the walk of K7 and K8 (csrc/nn_tiles.cuh)
+TILED_KERNELS = ("run_boxes_kernel", "nn_tiles_kernel")
+
+
+def tiled_needed_pairs(qs, ts, best, warp: int) -> tuple[float, float]:
+    """Pairs that no exact box rule over 32-target runs of the sorted target
+    can skip: for each query, the points of every run of 32 consecutive
+    targets (the kernels' chunk, whatever their tile) whose box is no farther
+    than the query's final best. One basis for K7 and K8 and their bounds.
+    Also the pairs a warp of ``warp`` consecutive queries scans when it votes
+    on each run with those final bests: the union of its queries' runs,
+    times its queries."""
+    import torch
+
+    from rfnet_tpu_torch.ops import chamfer
+
+    n, m = qs.shape[1], ts.shape[1]
+    boxes = chamfer._tile_boxes(ts, 32)
+    sizes = torch.full((boxes.shape[1],), 32.0, device=qs.device)
+    sizes[-1] = m - (boxes.shape[1] - 1) * 32
+    live = torch.clamp(n - torch.arange(0, n, warp, device=qs.device), max=warp).float()
+    pairs = union = 0.0
+    for lo in range(0, qs.shape[0], 8):  # (8, n, m / 32) gaps at a time
+        q, bx = qs[lo:lo + 8], boxes[lo:lo + 8]
+        gap2 = torch.zeros((q.shape[0], n, bx.shape[1]), device=qs.device)
+        for a in range(3):
+            qa = q[:, :, None, a]
+            g = torch.clamp(torch.maximum(bx[:, None, :, a] - qa, qa - bx[:, None, :, 3 + a]),
+                            min=0.0)
+            gap2 += g * g
+        need = gap2 <= best[lo:lo + 8, :, None]
+        del gap2
+        pairs += float((need * sizes).sum())
+        need = torch.nn.functional.pad(need, (0, 0, 0, -n % warp))
+        wants = need.view(need.shape[0], -1, warp, need.shape[2]).any(2)
+        union += float(((wants * sizes).sum(-1) * live).sum())
+    return pairs, union
+
+
 def check_tiled(kernel: str, name: str, q, t, library: bool = True) -> dict:
     """K7 or K8 on the clouds ``q`` -> ``t`` (sorted here as the kernel wants
     them) against the full plain scan, bit for bit on distances and indices,
-    K7 also against K3; timed beside K3 on the same clouds z-sorted. The
-    bound counts the pairs the kernel's own rule cannot skip: for each query,
-    the points of every tile whose box is no farther than its final best."""
+    K7 also against K3; timed (the wrapper's call, and the card alone: the
+    box pass and the walk in ``torch.profiler``) beside K3 on the same
+    clouds z-sorted. The bound counts the pairs no exact rule over 32-target
+    runs can skip (:func:`tiled_needed_pairs`)."""
     import torch
 
     from rfnet_tpu_torch.ops import chamfer, chamfer_pruned, chamfer_tile
 
-    label, sort_fn, fn, tile_n, tile_m = {
+    label, sort_fn, fn, plan = {
         "nn_pruned": ("K7", chamfer.sort_by_z_with_order, chamfer_pruned.nn_pruned,
-                      chamfer_pruned._TILE_N, chamfer_pruned._TILE_M),
+                      chamfer_pruned._PLAN),
         "nn_tile": ("K8", chamfer_tile.sort_by_morton_with_order, chamfer_tile.nn_tile,
-                    chamfer_tile._TILE_N, chamfer_tile._TILE_M),
+                    chamfer_tile._PLAN),
     }[kernel]
     qs, ts = sort_fn(q)[0], sort_fn(t)[0]
     kd, ki = fn(qs, ts)
@@ -853,37 +918,33 @@ def check_tiled(kernel: str, name: str, q, t, library: bool = True) -> dict:
         dd, di = chamfer.nn_dyn(qs, ts)
         check(torch.equal(kd, dd) and torch.equal(ki, di), f"K7 {name}: differs from K3")
     b, nq, m = qs.shape[0], qs.shape[1], ts.shape[1]
-    tile_m = min(tile_m, m)
+    warps, tile_m = chamfer._nn_tiles_fit(kernel, nq, m, plan)
+    r = chamfer._NN_TILES_R
     mt = -(-m // tile_m)
-    # tiles each block loaded, from the kernel's own count
-    _, _, visited = chamfer._nn_tiled(kernel, qs, ts, tile_n, tile_m)
+    _, _, visited = chamfer._nn_tiled(kernel, qs, ts, plan)
     loaded = float(visited.float().mean()) / mt
-    # pairs the rule cannot skip: point-to-box gap against the final best
-    boxes = chamfer._tile_boxes(ts, tile_m)
-    gap2 = torch.zeros((b, nq, mt), device=qs.device)
-    for a in range(3):
-        qa = qs[:, :, None, a]
-        g = torch.clamp(torch.maximum(boxes[:, None, :, a] - qa, qa - boxes[:, None, :, 3 + a]),
-                        min=0.0)
-        gap2 += g * g
-    sizes = torch.full((mt,), float(tile_m), device=qs.device)
-    sizes[-1] = m - (mt - 1) * tile_m
-    pairs = float(((gap2 <= kd[..., None]) * sizes).sum())
-    del gap2
+    pairs, union = tiled_needed_pairs(qs, ts, kd, 32 * r)
     ms = cuda_ms(lambda: fn(qs, ts), 20)
+    dev_ms = device_ms(lambda: fn(qs, ts), 10, TILED_KERNELS)
     k3_ms = cuda_ms(lambda: chamfer.nn_dyn(qz, tz), 10)
     plain_ms = cuda_ms(lambda: chamfer._nn_sorted_plain(qs, ts), 2, warmup=1)
     lib_ms = cuda_ms(lambda: torch.cdist(qs, ts).min(-1), 5) if library else None
-    b_ms, b_by = bound(9.0 * pairs, 4.0 * b * (3 * nq + 3 * m + 6 * mt + 2 * nq))
+    b_ms, b_by = bound(9.0 * pairs, 4.0 * b * (3 * nq + 3 * m + 2 * nq))
+    slots = sass_tiles_slots_a_pair(kernel == "nn_tile")
     lib = f"{lib_ms:.4f} ms" if library else "not run (matrix too large)"
-    print(f"{label} {kernel} {name} ({b},{nq},3)x({b},{m},3), tiles {tile_n}x{tile_m}: distances "
-          f"and indices bit-equal to the plain scan; tiles loaded {loaded:.4%}, pairs the rule "
-          f"cannot skip {pairs / (b * nq * m):.4%} of dense; kernel (with its boxes) {ms:.4f} ms, "
-          f"K3 on the same clouds {k3_ms:.4f} ms, plain {plain_ms:.4f} ms, cdist.min {lib}, "
-          f"bound {b_ms:.6f} ms ({b_by})")
+    print(f"{label} {kernel} {name} ({b},{nq},3)x({b},{m},3), plan (warps, tile) "
+          f"{(warps, tile_m)}: distances and indices bit-equal to the plain scan; tiles "
+          f"staged {loaded:.4%}, pairs no 32-target box rule can skip {pairs / (b * nq * m):.4%} "
+          f"of dense ({union / (b * nq * m):.4%} in the union of a warp's {32 * r} queries at "
+          f"their final bests); kernel {ms:.4f} ms ({fmt_ms(dev_ms)} on the card alone), K3 on "
+          f"the same clouds {k3_ms:.4f} ms, plain {plain_ms:.4f} ms, cdist.min {lib}, bound {b_ms:.6f} ms "
+          f"({b_by}); SASS {'not measured' if slots is None else f'{slots:.3f}'} issue slots a "
+          f"pair of the chunk loop")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=lib_ms, k3_ms=k3_ms, tiles_loaded=loaded,
-                needed_pairs_share=pairs / (b * nq * m))
+                library_ms=lib_ms, device_ms=dev_ms, k3_ms=k3_ms, plan=[warps, tile_m],
+                tiles_staged=loaded, needed_pairs_share=pairs / (b * nq * m),
+                warp_union_share=union / (b * nq * m),
+                sass_slots_a_pair=slots)
 
 
 def k3_random_init_cases(gt, gt2, rnd_a, rnd_b, pair_rnd) -> list:
@@ -1000,8 +1061,12 @@ def op_api(dev) -> dict:
         picked = (q - _gather_rows(t, i)).square().sum(-1)
         check(bool(torch.allclose(picked, dd, rtol=1e-5, atol=1e-9)),
               f"ops.nearest_neighbor_{name}: an index does not pick a nearest target")
+    times = [(cuda_ms(lambda f=f: f(q, t), 10), device_ms(lambda f=f: f(q, t), 10, TILED_KERNELS))
+             for f in (ops.nearest_neighbor_pruned, ops.nearest_neighbor_tile)]
     print("op API: nearest_neighbor_pruned and nearest_neighbor_tile (4,16384,3)x(4,3000,3) "
-          "unsorted: distances bit-equal to nearest_neighbor_dyn, every index a nearest target")
+          "unsorted: distances bit-equal to nearest_neighbor_dyn, every index a nearest target; "
+          + "; ".join(f"{k} {ms:.4f} ms with its sorts ({fmt_ms(dev)} in the kernel on the card "
+                      f"alone)" for k, (ms, dev) in zip(("K7", "K8"), times)))
 
     # grouping and interpolation: 256 FPS centroids of the 3000-point cloud
     _, cen = ops.sampling(256, t, "f")

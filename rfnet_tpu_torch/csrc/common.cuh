@@ -22,4 +22,12 @@ __device__ __forceinline__ float dot3(float a0, float a1, float a2,
   return __fadd_rn(__fadd_rn(__fmul_rn(a0, b0), __fmul_rn(a1, b1)), __fmul_rn(a2, b2));
 }
 
+// Writes boxes (b, ceil(count / run), 6): [lo x y z, hi x y z] over every
+// run of `run` consecutive points of each of b clouds of `count` points, a
+// ragged last run covering its real points only. The one box pass of the
+// spatially sorted kernels (boxes.cu): K6 takes runs of its tile, K7 and K8
+// runs of 32 targets and of their tile.
+cudaError_t run_boxes(const float* pts, int b, int count, int run, float* boxes,
+                      cudaStream_t stream);
+
 }  // namespace rfnet

@@ -201,41 +201,6 @@ __device__ __forceinline__ float pair_d2(const Own& me, int q, const float4& p) 
   return fmaxf(__fadd_rn(__fadd_rn(me.s[q], p.w), e), 0.f);
 }
 
-// boxes[t] = [lo x y z, hi x y z] over points [t kTile, (t+1) kTile) of a
-// cloud of `count` points: a warp a tile.
-__global__ void __launch_bounds__(kThreads)
-emd_boxes_kernel(const float* __restrict__ pts, int count, int tiles, float* __restrict__ boxes) {
-  const int lane = threadIdx.x & 31;
-  const int tile = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
-  if (tile >= tiles) return;
-  const float* p = pts + static_cast<size_t>(blockIdx.y) * count * 3;
-  float lo[3] = {CUDART_INF_F, CUDART_INF_F, CUDART_INF_F};
-  float hi[3] = {-CUDART_INF_F, -CUDART_INF_F, -CUDART_INF_F};
-  for (int k = tile * kTile + lane; k < min(count, (tile + 1) * kTile); k += 32) {
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      const float v = p[3 * static_cast<size_t>(k) + c];
-      lo[c] = fminf(lo[c], v);
-      hi[c] = fmaxf(hi[c], v);
-    }
-  }
-#pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    for (int d = 16; d > 0; d >>= 1) {
-      lo[c] = fminf(lo[c], __shfl_xor_sync(0xffffffffu, lo[c], d));
-      hi[c] = fmaxf(hi[c], __shfl_xor_sync(0xffffffffu, hi[c], d));
-    }
-  }
-  if (lane == 0) {
-    float* o = boxes + (static_cast<size_t>(blockIdx.y) * tiles + tile) * 6;
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      o[c] = lo[c];
-      o[3 + c] = hi[c];
-    }
-  }
-}
-
 __global__ void emd_init_kernel(float* __restrict__ remain_l, float* __restrict__ rowcost,
                                 float* __restrict__ remain_r, size_t bn, size_t bm, float multi_l,
                                 float multi_r) {
@@ -507,11 +472,8 @@ extern "C" int rfnet_emd_cost(const void* xyz1, const void* xyz2, void* boxes1, 
                                                                             multi_l, multi_r);
   if ((err = cudaGetLastError())) return err;
   const int nt = (n + kTile - 1) / kTile, mt = (m + kTile - 1) / kTile;
-  constexpr int kBoxTiles = kThreads / 32;
-  emd_boxes_kernel<<<dim3((nt + kBoxTiles - 1) / kBoxTiles, b), kThreads, 0, s>>>(x1, n, nt, b1);
-  if ((err = cudaGetLastError())) return err;
-  emd_boxes_kernel<<<dim3((mt + kBoxTiles - 1) / kBoxTiles, b), kThreads, 0, s>>>(x2, m, mt, b2);
-  if ((err = cudaGetLastError())) return err;
+  if ((err = rfnet::run_boxes(x1, b, n, kTile, b1, s))) return err;
+  if ((err = rfnet::run_boxes(x2, b, m, kTile, b2, s))) return err;
   const dim3 rows((n + kRows - 1) / kRows, b, parts), cols((m + kRows - 1) / kRows, b, parts);
   emd_row_kernel<kNone, kExp><<<rows, kThreads, 0, s>>>(x1, x2, b2, n, m, 0.f, lam2[0], band(0),
                                                         rmr, rtr, ps);

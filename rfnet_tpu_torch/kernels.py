@@ -60,8 +60,9 @@ _SIGNATURES = {
     # tile, parts, multi_l, multi_r, remain_l, ratio_l, rowcost, remain_r,
     # ratio_r, part_sums (scratch), cost_out, band_skip, stream
     "emd_cost": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P, _P, _P, _P, _P, _P, _P, _I, _P),
-    # query_sorted, target_sorted, tile boxes, b, n, m, tile_n, tile_m,
-    # dist_out, idx_out, tiles loaded per block out, stream
+    # query_sorted, target_sorted, box scratch, b, n, m, the plan (warps a
+    # block, targets a tile), dist_out, idx_out, tiles staged per block out,
+    # stream
     "nn_pruned": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P),
     "nn_tile": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P),
 }

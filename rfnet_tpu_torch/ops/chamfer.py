@@ -309,7 +309,9 @@ def nn_dyn(query_sorted: torch.Tensor, target_sorted: torch.Tensor):
 def _tile_boxes(ts: torch.Tensor, tile_m: int) -> torch.Tensor:
     """(b, mt, 6) boxes [lo x y z, hi x y z] over each run of ``tile_m``
     consecutive points of ``ts`` (b, m, 3); the ragged last run counts its
-    real points only. The glue K7 and K8 take beside the sorted target."""
+    real points only. The plain version of the box pass K7 and K8 run before
+    their walk (at 32 targets a chunk and at their tile size), and the glue
+    K6 takes beside its sorted clouds."""
     b, m, _ = ts.shape
     mt = -(-m // tile_m)
     pad = (0, 0, 0, mt * tile_m - m)
@@ -318,28 +320,66 @@ def _tile_boxes(ts: torch.Tensor, tile_m: int) -> torch.Tensor:
     return torch.cat([lo, hi], dim=-1).contiguous()
 
 
-def _nn_tiled(name: str, query_sorted: torch.Tensor, target_sorted: torch.Tensor,
-              tile_n: int, tile_m: int):
+_NN_TILES_R = 2  # queries a thread of K7 and K8 (kR)
+_NN_TILES_CHUNK = 32  # targets of a chunk, their finest skip (kChunk)
+# shared memory a block may have, less the walk's static part
+# (kTilesMaxShared - kTilesStaticShared)
+_NN_TILES_MAX_SHARED = 232448 - 8 * 7 * 4
+
+
+def _nn_tiles_shared(name: str, m: int, tile_m: int) -> int:
+    """Dynamic shared memory of a K7 or K8 block (nn_tiles_shared_bytes):
+    two buffers of ``tile_m`` float4s and, for K8, its tiles' 8-byte sort
+    keys, padded to a power of two."""
+    mt = -(-m // tile_m)
+    keys = 1 << (mt - 1).bit_length() if name == "nn_tile" else 0
+    return 32 * tile_m + 8 * keys
+
+
+def _nn_tiles_fit(name: str, n: int, m: int, plan: tuple) -> tuple:
+    """The plan (warps a block, targets a tile) that K7 (``nn_pruned``) or
+    K8 (``nn_tile``) runs at ``n`` queries and ``m`` targets: the warps cut
+    to the fewest (a power of two) that hold n queries at two a thread; the
+    tile cut to m rounded up to a chunk and, where K8's sort keys would not
+    fit shared memory (m > 2 097 152 at 128 a tile), doubled until they do.
+    The kernel refuses warps other than a power of two up to 8, a tile that
+    is not a multiple of 32, and a block that does not fit; so does this
+    beyond 2^25 targets a cloud."""
+    warps, tile_m = plan
+    need = -(-n // (32 * _NN_TILES_R))
+    while warps > 1 and warps // 2 >= need:
+        warps //= 2
+    c = _NN_TILES_CHUNK
+    tile_m = min(tile_m, -(-m // c) * c)
+    while _nn_tiles_shared(name, m, tile_m) > _NN_TILES_MAX_SHARED:
+        if 64 * tile_m > _NN_TILES_MAX_SHARED:  # the doubled tile's buffers alone
+            raise ValueError(f"{name}: {m} targets a cloud is more than its tiles can hold")
+        tile_m *= 2
+    return warps, tile_m
+
+
+def _nn_tiled(name: str, query_sorted: torch.Tensor, target_sorted: torch.Tensor, plan: tuple):
     """The wrapper body K7 (``nn_pruned``) and K8 (``nn_tile``) share: the
-    plain full scan for CPU tensors, the kernel ``name`` with its tile boxes
-    for CUDA tensors. Returns (dist², idx, visited): ``visited`` (b, query
-    tiles) int32 counts the target tiles each block loaded (every tile on
-    the CPU, which prunes nothing)."""
+    plain full scan for CPU tensors, the kernel ``name`` under ``plan``
+    (warps, tile_m; :func:`_nn_tiles_fit`) for CUDA tensors. The kernel
+    computes its chunk and tile boxes itself, into scratch. Returns (dist²,
+    idx, visited): ``visited`` (b, query blocks) int32 counts the target
+    tiles each block staged (every tile on the CPU, which prunes nothing)."""
     _check_pair(query_sorted, target_sorted)
     qs = query_sorted.detach().contiguous()
     ts = target_sorted.detach().contiguous()
     b, n, _ = qs.shape
     m = ts.shape[1]
-    tile_n = min(tile_n, -(-n // 32) * 32)
-    tile_m = min(tile_m, m)
-    nt, mt = -(-n // tile_n), -(-m // tile_m)
+    warps, tile_m = _nn_tiles_fit(name, n, m, plan)
+    nt, mt = -(-n // (32 * warps * _NN_TILES_R)), -(-m // tile_m)
     if not qs.is_cuda:
         return (*_nn_sorted_plain(qs, ts), torch.full((b, nt), mt, dtype=torch.int32))
-    boxes = _tile_boxes(ts, tile_m)
+    mc = -(-m // _NN_TILES_CHUNK)
+    boxes = torch.empty(b * (mc + mt) * 6, dtype=torch.float32, device=qs.device)
     dist = torch.empty((b, n), dtype=torch.float32, device=qs.device)
     idx = torch.empty((b, n), dtype=torch.int32, device=qs.device)
     visited = torch.empty((b, nt), dtype=torch.int32, device=qs.device)
-    kernels.launch(name, qs.device, qs, ts, boxes, b, n, m, tile_n, tile_m, dist, idx, visited)
+    kernels.launch(name, qs.device, qs, ts, boxes, b, n, m, warps, tile_m, dist, idx, visited)
     return dist, idx, visited
 
 

@@ -3,10 +3,12 @@
 Port of ``rfnet_tpu/ops/pallas/chamfer_pruned.py`` and of
 ``rfnet_tpu/ops/chamfer.py:nearest_neighbor_pruned``. Both clouds are sorted
 by z, so a tile of consecutive targets is a thin slab; kernel K7
-(``csrc/nn_pruned.cu``) visits the target tiles from the z-diagonal outward
-and skips a tile when every query's distance to the tile's box exceeds its
-running best. The boxes are glue computed here (``ops/chamfer.py:
-_tile_boxes``), as the JAX wrapper computes them outside its kernel.
+(``csrc/nn_pruned.cu``) visits the target tiles from the one at its queries'
+middle z, wrapping, stages only the tiles some warp's query box can still
+reach, and skips a tile or a chunk of 32 targets by a warp's vote on its
+queries' point-to-box bounds. The kernel computes the boxes itself, in a
+pass before its walk, as the JAX wrapper computes them outside its kernel
+(plain version ``ops/chamfer.py:_tile_boxes``).
 
 Distances are sums of squared differences and the lowest sorted index wins
 ties, as in K3, so one plain version serves K3, K7 and K8
@@ -21,16 +23,15 @@ import torch
 
 from rfnet_tpu_torch.ops.chamfer import _nn_sorted_unsorted, _nn_tiled, sort_by_z_with_order
 
-# Queries a block (one thread each) and targets a tile. Narrower target tiles
-# are thinner slabs and prune more; wider ones pay fewer block-wide votes.
-_TILE_N = 256
-_TILE_M = 256
+# The launch plan (warps a block, targets a tile): the best of
+# tools/bench_torch_nn_sorted.py's sweep over the PERF.md shapes (PERF.md §6).
+_PLAN = (4, 512)
 
 
 def nn_pruned(query_sorted: torch.Tensor, target_sorted: torch.Tensor):
     """K7's wrapper: exact one-sided NN over z-SORTED clouds,
     (dist² (b,n), idx (b,n) int32 into the sorted target)."""
-    return _nn_tiled("nn_pruned", query_sorted, target_sorted, _TILE_N, _TILE_M)[:2]
+    return _nn_tiled("nn_pruned", query_sorted, target_sorted, _PLAN)[:2]
 
 
 def nearest_neighbor_pruned(query: torch.Tensor, target: torch.Tensor):

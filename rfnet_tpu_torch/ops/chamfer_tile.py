@@ -4,10 +4,12 @@ Port of ``rfnet_tpu/ops/pallas/chamfer_tile.py``. A z-sorted slab is a shell
 across the whole x/y extent: when the query cloud sits far from the target
 (an untrained model's output) the z gap prunes little. Sorting both clouds by
 Morton code makes a run of consecutive points a compact box, and kernel K8
-(``csrc/nn_tile.cu``) takes the target tiles of each query tile best-first by
-the box-to-box gap until the least gap left exceeds every running best. The
-Morton sort and the per-tile boxes (``ops/chamfer.py:_tile_boxes``) are glue
-computed here, as the JAX wrapper computes them outside its kernel.
+(``csrc/nn_tile.cu``) sorts each query block's target tiles once by the
+box-to-box gap and walks them in that order until no warp's queries can
+reach the next one. The Morton sort is glue computed here, as the JAX
+wrapper computes it outside its kernel; the kernel computes the tile and
+chunk boxes itself, in a pass before its walk (plain version
+``ops/chamfer.py:_tile_boxes``).
 
 Distances are sums of squared differences and the lowest sorted index wins
 ties, so the plain version is the full scan K3 and K7 share
@@ -22,10 +24,12 @@ import torch
 
 from rfnet_tpu_torch.ops.chamfer import _gather_rows, _nn_tiled
 
-# Queries a block (one thread each) and targets a tile; smaller boxes bound
-# tighter, larger ones pay fewer block-wide rounds.
-_TILE_N = 128
-_TILE_M = 128
+# The launch plan (warps a block, targets a tile): the best of
+# tools/bench_torch_nn_sorted.py's sweep over the PERF.md shapes (PERF.md
+# §6). The wrapper widens the tile beyond 2 097 152 targets, where the
+# kernel's sort keys would not fit shared memory (ops/chamfer.py:
+# _nn_tiles_fit).
+_PLAN = (1, 128)
 
 
 def morton_code(x: torch.Tensor, bits: int = 10) -> torch.Tensor:
@@ -59,6 +63,7 @@ def sort_by_morton_with_order(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tens
 
 def nn_tile(query_sorted: torch.Tensor, target_sorted: torch.Tensor):
     """K8's wrapper: exact one-sided NN over spatially sorted clouds,
-    (dist² (b,n), idx (b,n) int32 into the sorted target). Any number of
-    target tiles (the TPU kernel takes at most 128)."""
-    return _nn_tiled("nn_tile", query_sorted, target_sorted, _TILE_N, _TILE_M)[:2]
+    (dist² (b,n), idx (b,n) int32 into the sorted target). Up to 2^25
+    targets a cloud, in up to 16 384 tiles (the TPU kernel takes at most
+    128 tiles); raises ValueError beyond."""
+    return _nn_tiled("nn_tile", query_sorted, target_sorted, _PLAN)[:2]

@@ -12,6 +12,7 @@ import torch
 
 from rfnet_tpu_torch import kernels
 from rfnet_tpu_torch.ops import chamfer, fps
+from tiled_ties import planted_ties
 
 pytestmark = pytest.mark.gpu
 
@@ -103,15 +104,22 @@ def _tiled_cases():
                               [rng.rand(1, 1, 3).astype(np.float32)] * 2]
 
 
+# K7 / K8 plans (warps a block, targets a tile): one warp and four, one
+# chunk a tile and many (None: the wrapper's own)
+_TILE_PLANS = [None, (1, 32), (4, 128)]
+
+
+@pytest.mark.parametrize("plan", _TILE_PLANS)
 @pytest.mark.parametrize("case", range(9))
-def test_nn_pruned_kernel_equals_plain_and_k3(cuda, case):
+def test_nn_pruned_kernel_equals_plain_and_k3(cuda, case, plan):
     from rfnet_tpu_torch.ops import chamfer_pruned
 
     q, t = (torch.from_numpy(a) for a in _tiled_cases()[case])
     qs, _ = chamfer.sort_by_z_with_order(q)
     ts, _ = chamfer.sort_by_z_with_order(t)
     before = kernels.launches["nn_pruned"]
-    kd, ki = chamfer_pruned.nn_pruned(qs.to(cuda), ts.to(cuda))
+    kd, ki, _ = chamfer._nn_tiled("nn_pruned", qs.to(cuda), ts.to(cuda),
+                                  plan or chamfer_pruned._PLAN)
     assert kernels.launches["nn_pruned"] == before + 1
     pd, pi = chamfer_pruned.nn_pruned(qs, ts)  # CPU: the full plain scan
     # same sum-of-squares chain, bounds that never exceed it, lowest index on
@@ -123,7 +131,11 @@ def test_nn_pruned_kernel_equals_plain_and_k3(cuda, case):
     torch.testing.assert_close(ki, di, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("tiles", [(128, 128), (256, 512), (32, 7), (64, 4096)])
+# (warps, tile_m): the earlier (queries a block, targets a tile) of (128, 128),
+# (256, 512), (32, 7) and (64, 4096), cut to what the kernel takes (64
+# queries a warp, tiles of whole 32-target chunks), and one or two more warps
+@pytest.mark.parametrize("tiles", [(1, 128), (2, 128), (2, 512), (4, 512),
+                                   (1, 32), (2, 32), (1, 4096), (8, 64)])
 @pytest.mark.parametrize("case", range(9))
 def test_nn_tile_kernel_equals_plain(cuda, case, tiles):
     from rfnet_tpu_torch.ops import chamfer_tile
@@ -132,16 +144,117 @@ def test_nn_tile_kernel_equals_plain(cuda, case, tiles):
     qs, _ = chamfer_tile.sort_by_morton_with_order(q)
     ts, _ = chamfer_tile.sort_by_morton_with_order(t)
     before = kernels.launches["nn_tile"]
-    kd, ki, _ = chamfer._nn_tiled("nn_tile", qs.to(cuda), ts.to(cuda), *tiles)
+    kd, ki, _ = chamfer._nn_tiled("nn_tile", qs.to(cuda), ts.to(cuda), tiles)
     assert kernels.launches["nn_tile"] == before + 1
     pd, pi = chamfer_tile.nn_tile(qs, ts)  # CPU: the full plain scan
     torch.testing.assert_close(kd.cpu(), pd, rtol=0, atol=0)
     torch.testing.assert_close(ki.cpu(), pi, rtol=0, atol=0)
     # exact for any order: unsorted clouds prune less and give the same answer
-    ud, ui, _ = chamfer._nn_tiled("nn_tile", q.to(cuda), t.to(cuda), *tiles)
+    ud, ui, _ = chamfer._nn_tiled("nn_tile", q.to(cuda), t.to(cuda), tiles)
     fd, fi = chamfer._nn_sorted_plain(q, t)
     torch.testing.assert_close(ud.cpu(), fd, rtol=0, atol=0)
     torch.testing.assert_close(ui.cpu(), fi, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("kernel", ["nn_pruned", "nn_tile"])
+@pytest.mark.parametrize("plan", [(1, 32), (1, 64), (2, 128)])
+def test_nn_tiled_kernels_planted_ties(cuda, kernel, plan):
+    """Ties across a tile boundary that the walk meets lower index last, and
+    across a chunk boundary: the lowest index wins (planted_ties)."""
+    q, t, want = (torch.from_numpy(np.asarray(a)) for a in planted_ties(plan[1]))
+    kd, ki, _ = chamfer._nn_tiled(kernel, q.to(cuda), t.to(cuda), plan)
+    pd, pi = chamfer._nn_sorted_plain(q, t)
+    assert torch.equal(pi[0].long(), want)
+    torch.testing.assert_close(kd.cpu(), pd, rtol=0, atol=0)
+    torch.testing.assert_close(ki.cpu(), pi, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("kernel", ["nn_pruned", "nn_tile"])
+@pytest.mark.parametrize("plan", [None, (8, 64), (2, 256)])
+def test_nn_tiled_kernels_unaligned_and_ragged(cuda, kernel, plan):
+    """Clouds whose base is not 16-byte aligned (4 bytes past a boundary, and
+    one point, 12 bytes, past one), n = 333 not a multiple of 64, and
+    m = 3001 not a multiple of the tile or of a chunk: bit-equal to the plain
+    scan; and the kernel's chunk and tile boxes equal the plain _tile_boxes."""
+    from rfnet_tpu_torch.ops import chamfer_pruned, chamfer_tile
+
+    plan = plan or {"nn_pruned": chamfer_pruned._PLAN, "nn_tile": chamfer_tile._PLAN}[kernel]
+    sort_fn = chamfer.sort_by_z_with_order if kernel == "nn_pruned" else \
+        chamfer_tile.sort_by_morton_with_order
+    q, t = _clouds(81, (3, 333, 3), (3, 3001, 3))
+    qs, ts = sort_fn(q)[0], sort_fn(t)[0]
+    pd, pi = chamfer._nn_sorted_plain(qs, ts)
+    for skip in (1, 3):  # floats before the cloud
+        qa = torch.empty(skip + qs.numel(), device=cuda)[skip:].view(qs.shape).copy_(qs)
+        ta = torch.empty(skip + ts.numel(), device=cuda)[skip:].view(ts.shape).copy_(ts)
+        assert qa.data_ptr() % 16 == ta.data_ptr() % 16 == 4 * skip
+        kd, ki, _ = chamfer._nn_tiled(kernel, qa, ta, plan)
+        torch.testing.assert_close(kd.cpu(), pd, rtol=0, atol=0)
+        torch.testing.assert_close(ki.cpu(), pi, rtol=0, atol=0)
+    # the box pre-pass alone: the scratch holds chunk boxes, then tile boxes
+    b, m = ta.shape[0], ta.shape[1]
+    warps, tile_m = chamfer._nn_tiles_fit(kernel, qa.shape[1], m, plan)
+    mc, mt = -(-m // 32), -(-m // tile_m)
+    boxes = torch.empty(b * (mc + mt) * 6, device=cuda)
+    out = [torch.empty((b, qa.shape[1]), dtype=dt, device=cuda) for dt in (torch.float32,
+                                                                            torch.int32)]
+    visited = torch.empty((b, -(-qa.shape[1] // (64 * warps))), dtype=torch.int32, device=cuda)
+    kernels.launch(kernel, cuda, qa, ta, boxes, b, qa.shape[1], m, warps, tile_m, *out, visited)
+    torch.cuda.synchronize()
+    assert torch.equal(boxes[:b * mc * 6].view(b, mc, 6).cpu(), chamfer._tile_boxes(ta.cpu(), 32))
+    assert torch.equal(boxes[b * mc * 6:].view(b, mt, 6).cpu(),
+                       chamfer._tile_boxes(ta.cpu(), tile_m))
+
+
+@pytest.mark.parametrize("kernel", ["nn_pruned", "nn_tile"])
+def test_nn_tiled_kernels_large(cuda, kernel):
+    """b = 64 clouds of 16 384 (the losses' pair) under the wrapper's plan,
+    and K8 with more than 1 024 tiles (40 000 targets, 32 a tile: 1 250
+    keys, a sort of 2 048)."""
+    from rfnet_tpu_torch.ops import chamfer_pruned, chamfer_tile
+
+    sort_fn, plan = {"nn_pruned": (chamfer.sort_by_z_with_order, chamfer_pruned._PLAN),
+                     "nn_tile": (chamfer_tile.sort_by_morton_with_order, chamfer_tile._PLAN)}[kernel]
+    rng = np.random.RandomState(82)
+    t = rng.rand(64, 16384, 3).astype(np.float32)
+    t[..., 2] = 0.3 * np.sin(3 * t[..., 0]) * np.cos(2 * t[..., 1])
+    q = (t + 0.005 * rng.randn(*t.shape)).astype(np.float32)
+    qs, ts = (sort_fn(torch.from_numpy(x).to(cuda))[0] for x in (q, t))
+    kd, ki, _ = chamfer._nn_tiled(kernel, qs, ts, plan)
+    pd, pi = chamfer._nn_sorted_plain(qs, ts)
+    assert torch.equal(kd, pd) and torch.equal(ki, pi)
+    if kernel == "nn_tile":
+        q, t = _clouds(83, (2, 700, 3), (2, 40000, 3))
+        qs, ts = (sort_fn(x.to(cuda))[0] for x in (q, t))
+        for tiles in ((1, 32), (8, 32)):
+            kd, ki, _ = chamfer._nn_tiled(kernel, qs, ts, tiles)
+            pd, pi = chamfer._nn_sorted_plain(qs, ts)
+            assert torch.equal(kd, pd) and torch.equal(ki, pi)
+
+
+@pytest.mark.parametrize("m", [2097153, 1 << 25])
+def test_nn_tile_widens_its_tile_to_fit_its_sort_keys(cuda, m):
+    """K8 beyond 2 097 152 targets a cloud: the sort keys of 128-target
+    tiles (16 385, padded to 32 768) do not fit shared memory, so the kernel
+    refuses that plan, and the wrapper widens the tile (to 256; at 2^25, the
+    most it takes, to 2 048) and is bit-equal to the plain scan."""
+    from rfnet_tpu_torch.ops import chamfer_tile
+
+    assert chamfer._nn_tiles_fit("nn_tile", 100, 2097152, chamfer_tile._PLAN) == (1, 128)
+    warps, tile_m = chamfer._nn_tiles_fit("nn_tile", 100, m, chamfer_tile._PLAN)
+    assert (warps, tile_m) == ((1, 256) if m == 2097153 else (1, 2048))
+    q, t = _clouds(84, (1, 100, 3), (1, m, 3))
+    qs, ts = (chamfer_tile.sort_by_morton_with_order(x.to(cuda))[0] for x in (q, t))
+    kd, ki = chamfer_tile.nn_tile(qs, ts)
+    pd, pi = chamfer._nn_sorted_plain(qs, ts)
+    assert torch.equal(kd, pd) and torch.equal(ki, pi)
+    tile_m //= 2  # the next narrower tile's keys do not fit
+    mc, mt = -(-m // 32), -(-m // tile_m)
+    boxes = torch.empty((mc + mt) * 6, device=cuda)
+    out = [torch.empty((1, 100), dtype=dt, device=cuda) for dt in (torch.float32, torch.int32)]
+    visited = torch.empty((1, 2), dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError, match="rfnet_nn_tile"):
+        kernels.launch("nn_tile", cuda, qs, ts, boxes, 1, 100, m, 1, tile_m, *out, visited)
 
 
 def test_tiled_kernels_prune(cuda):
@@ -155,12 +268,13 @@ def test_tiled_kernels_prune(cuda):
     q = (t + 0.005 * rng.randn(*t.shape)).astype(np.float32)
     q, t = torch.from_numpy(q).to(cuda), torch.from_numpy(t).to(cuda)
     dd, di = chamfer.nearest_neighbor_dyn(q, t)
-    for sort_fn, name, tn, tm in ((chamfer.sort_by_z_with_order, "nn_pruned", 256, 256),
-                                  (chamfer_tile.sort_by_morton_with_order, "nn_tile", 128, 128)):
+    # (warps, tile_m): 256 queries a block, 256 targets a tile; 128 and 128
+    for sort_fn, name, plan in ((chamfer.sort_by_z_with_order, "nn_pruned", (4, 256)),
+                                (chamfer_tile.sort_by_morton_with_order, "nn_tile", (2, 128))):
         qs, _ = sort_fn(q)
         ts, _ = sort_fn(t)
-        _, _, visited = chamfer._nn_tiled(name, qs, ts, tn, tm)
-        share = float(visited.float().mean()) / (16384 // tm)
+        _, _, visited = chamfer._nn_tiled(name, qs, ts, plan)
+        share = float(visited.float().mean()) / (16384 // plan[1])
         assert 0 < share < 0.25, (name, share)
     for fn in (chamfer_pruned.nearest_neighbor_pruned, chamfer.nearest_neighbor_tile):
         d, i = fn(q, t)

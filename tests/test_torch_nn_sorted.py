@@ -18,6 +18,7 @@ from rfnet_tpu.ops import chamfer as jchamfer
 from rfnet_tpu.ops.pallas import chamfer_tile as jtile
 from rfnet_tpu.ops.pallas.chamfer_pruned import nn_pruned_pallas
 from rfnet_tpu_torch.ops import chamfer, chamfer_pruned, chamfer_tile
+from tiled_ties import planted_ties
 
 INT_MAX = np.iinfo(np.int32).max
 
@@ -177,12 +178,14 @@ def _point_box(q, box):
     return _sq3(np.maximum(np.maximum(box[:3] - q, q - box[3:]), np.float32(0)))
 
 
-def _scan(full, rows, base, cnt, want, best, best_j):
-    for r in np.nonzero(want)[0]:
-        for k in range(cnt):
-            d, j = full[rows[r], base + k], base + k
-            if d < best[r] or (d == best[r] and j < best_j[r]):
-                best[r], best_j[r] = d, j
+def _box_box(qbox, boxes):
+    """Squared gaps from the query box ``qbox`` (6,) to ``boxes`` (k, 6)."""
+    return _sq3(np.maximum(np.maximum(boxes[:, :3] - qbox[3:], qbox[:3] - boxes[:, 3:]),
+                           np.float32(0)))
+
+
+def _box(x):
+    return np.concatenate([x.min(0), x.max(0)])
 
 
 def _assert_skippable(full, rows, base, cnt, best, what):
@@ -191,75 +194,128 @@ def _assert_skippable(full, rows, base, cnt, best, what):
     assert (full[rows][:, base : base + cnt] > best[:, None]).all(), what
 
 
-def _walk_pruned(qs, ts, boxes, tile_n, tile_m):
-    """csrc/nn_pruned.cu for one cloud; returns (dist, idx, tiles skipped)."""
-    n, m = len(qs), len(ts)
-    nt, mt = -(-n // tile_n), -(-m // tile_m)
-    full = _d32(qs, ts)
-    dist, idx, skipped = np.empty(n, np.float32), np.empty(n, np.int32), 0
-    for ni in range(nt):
-        rows = np.arange(ni * tile_n, min((ni + 1) * tile_n, n))
-        best = np.full(len(rows), np.inf, np.float32)
-        best_j = np.full(len(rows), INT_MAX, np.int64)
-        for step in range(mt):
-            phys = (ni * mt // nt + step) % mt
-            base, cnt = phys * tile_m, min(tile_m, m - phys * tile_m)
-            want = ~(_point_box(qs[rows], boxes[phys]) > best)
-            _assert_skippable(full, rows[~want], base, cnt, best[~want], f"K7 tile {phys}")
-            skipped += not want.any()
-            _scan(full, rows, base, cnt, want, best, best_j)
-        dist[rows], idx[rows] = best, best_j
-    return dist, idx, skipped
+def _bitonic(keys):
+    """csrc/nn_tiles.cuh's in-place bitonic sort of 64-bit keys, padded to a
+    power of two with ~0, one (span, j) round at a time."""
+    size = 1 << max(0, int(len(keys) - 1).bit_length())
+    k = np.full(size, np.iinfo(np.uint64).max, np.uint64)
+    k[: len(keys)] = keys
+    lane = np.arange(size)
+    span = 2
+    while span <= size:
+        j = span >> 1
+        while j > 0:
+            lo = lane[(lane ^ j) > lane]
+            hi = lo ^ j
+            a, c = k[lo], k[hi]
+            swap = (a > c) == ((lo & span) == 0)
+            k[lo[swap]], k[hi[swap]] = c[swap], a[swap]
+            j >>= 1
+        span <<= 1
+    return k[: len(keys)]
 
 
-def _walk_tile(qs, ts, boxes, tile_n, tile_m):
-    """csrc/nn_tile.cu for one cloud; returns (dist, idx, tiles skipped)."""
+def _keys(bounds):
+    """(bound bits << 32) | tile: a bound is >= +0, so its bits order as it."""
+    return (bounds.astype(np.float32).view(np.uint32).astype(np.uint64) << np.uint64(32)) | \
+        np.arange(len(bounds), dtype=np.uint64)
+
+
+def _walk(qs, ts, plan, best_first):
+    """csrc/nn_tiles.cuh's walk for one cloud in float32: K8's sorted order
+    (``best_first``) or K7's diagonal one, each warp's look-ahead by its
+    query box and its largest best, the block staging the least step its
+    warps want (decided before the current tile is scanned, as the kernel
+    overlaps the copy), the warp's tile and chunk votes on point-to-box
+    bounds, and chunk winners by strict < merged once a chunk by the tie
+    rule. Asserts that nothing skipped could have mattered. Returns (dist,
+    idx, chunks skipped, the tiles each block staged, in order)."""
+    name = "nn_tile" if best_first else "nn_pruned"
+    warps, tile_m = chamfer._nn_tiles_fit(name, len(qs), len(ts), plan)
+    r = chamfer._NN_TILES_R
     n, m = len(qs), len(ts)
-    nt, mt = -(-n // tile_n), -(-m // tile_m)
     full = _d32(qs, ts)
-    dist, idx, skipped = np.empty(n, np.float32), np.empty(n, np.int32), 0
-    for ni in range(nt):
-        rows = np.arange(ni * tile_n, min((ni + 1) * tile_n, n))
-        qlo, qhi = qs[rows].min(0), qs[rows].max(0)
-        gap = np.maximum(np.maximum(boxes[:, :3] - qhi, qlo - boxes[:, 3:]), np.float32(0))
-        bounds = _sq3(gap)
-        assert bounds.dtype == np.float32
-        best = np.full(len(rows), np.inf, np.float32)
-        best_j = np.full(len(rows), INT_MAX, np.int64)
-        for _ in range(mt):
-            arg = int(np.argmin(bounds))  # the first of equal bounds
-            if not (~(bounds[arg] > best)).any():
-                break
-            bounds[arg] = np.inf
-            base, cnt = arg * tile_m, min(tile_m, m - arg * tile_m)
-            want = ~(_point_box(qs[rows], boxes[arg]) > best)
-            _assert_skippable(full, rows[~want], base, cnt, best[~want], f"K8 tile {arg}")
-            _scan(full, rows, base, cnt, want, best, best_j)
-        for k in np.nonzero(np.isfinite(bounds))[0]:  # never visited
+    cbox = chamfer._tile_boxes(_t(ts[None]), 32)[0].numpy()
+    tbox = chamfer._tile_boxes(_t(ts[None]), tile_m)[0].numpy()
+    mt = len(tbox)
+    best = np.full(n, np.inf, np.float32)
+    best_j = np.full(n, INT_MAX, np.int64)
+    skipped, staged_log = 0, []
+    for q0 in range(0, n, 32 * warps * r):
+        wrows = [np.arange(q0 + w * 32 * r, min(q0 + (w + 1) * 32 * r, n)) for w in range(warps)]
+        wrows = [w for w in wrows if len(w)]
+        rows = np.concatenate(wrows)
+        wboxes = [_box(qs[w]) for w in wrows]
+        bounds = _box_box(_box(qs[rows]), tbox)
+        if best_first:
+            order = (_bitonic(_keys(bounds)) & np.uint64(0xFFFFFFFF)).astype(np.int64)
+        else:  # from the first tile whose top z reaches the middle query's z
+            zmid = qs[(q0 + rows[-1]) // 2, 2]
+            anchor = min(int(np.searchsorted(tbox[:, 5], zmid, side="left")), mt - 1)
+            order = (anchor + np.arange(mt)) % mt
+
+        def warp_next(w, wbox, start):
+            wmax = best[w].max()
+            for s0 in range(start, mt, 32):
+                k = order[s0 : s0 + 32]
+                past = bounds[k] > wmax if best_first else np.zeros(len(k), bool)
+                want = ~past & ~(_box_box(wbox, tbox[k]) > wmax)
+                if want.any():
+                    return s0 + int(np.argmax(want))
+                if past.any():
+                    return mt
+            return mt
+
+        cur, staged = 0, []
+        while True:
+            nxt = min(warp_next(w, wb, cur + 1) for w, wb in zip(wrows, wboxes))
+            k = order[cur]
+            staged.append(int(k))
             base, cnt = k * tile_m, min(tile_m, m - k * tile_m)
-            _assert_skippable(full, rows, base, cnt, best, f"K8 unvisited tile {k}")
-            skipped += 1
-        dist[rows], idx[rows] = best, best_j
-    return dist, idx, skipped
+            for w in wrows:
+                if not (~(_point_box(qs[w], tbox[k]) > best[w])).any():
+                    _assert_skippable(full, w, base, cnt, best[w], f"tile {k}")
+                    skipped += -(-cnt // 32)
+                    continue
+                for j0 in range(base, base + cnt, 32):
+                    cc = min(32, m - j0)
+                    if not (~(_point_box(qs[w], cbox[j0 // 32]) > best[w])).any():
+                        _assert_skippable(full, w, j0, cc, best[w], f"chunk at {j0}")
+                        skipped += 1
+                        continue
+                    seg = full[w, j0 : j0 + cc]
+                    ck = seg.argmin(1)  # the first least: strict < in ascending index
+                    cb, j = seg[np.arange(len(w)), ck], j0 + ck
+                    take = (cb < best[w]) | ((cb == best[w]) & (j < best_j[w]))
+                    best[w[take]], best_j[w[take]] = cb[take], j[take]
+            if nxt >= mt:
+                break
+            cur = nxt
+        for k in sorted(set(range(mt)) - set(staged)):  # never staged
+            base, cnt = k * tile_m, min(tile_m, m - k * tile_m)
+            _assert_skippable(full, rows, base, cnt, best[rows], f"unstaged tile {k}")
+            skipped += -(-cnt // 32)
+        staged_log.append(staged)
+    return best, best_j.astype(np.int32), skipped, staged_log
 
 
+@pytest.mark.parametrize("plan", [(1, 32), (2, 64)])
 @pytest.mark.parametrize("kernel", ["nn_pruned", "nn_tile"])
 @pytest.mark.parametrize("name", sorted(CASES))
-def test_skip_rule_walk_is_exact(name, kernel):
-    """Each kernel's control flow in float32 (tiles of 32 queries × 16
-    targets, so the small clouds have many tiles): no skipped tile held a
-    nearer or an equal-and-lower-index target, the result equals the full
-    scan bit for bit, and structured clouds do skip."""
+def test_skip_rule_walk_is_exact(name, kernel, plan):
+    """Each kernel's control flow in float32 (plans of 64 queries a block
+    and one chunk a tile, or 128 in two warps and two chunks a tile, so the
+    small clouds have many tiles): no skipped tile or chunk held a nearer or
+    an equal-and-lower-index target, the result equals the full scan bit
+    for bit, and structured clouds do skip."""
     q, t = CASES[name]
     sort_fn = (chamfer.sort_by_z_with_order if kernel == "nn_pruned"
                else chamfer_tile.sort_by_morton_with_order)
-    walk = _walk_pruned if kernel == "nn_pruned" else _walk_tile
     qs, ts = sort_fn(_t(q))[0], sort_fn(_t(t))[0]
-    boxes = chamfer._tile_boxes(ts, 16).numpy()
     pd, pi = chamfer._nn_sorted_plain(qs, ts)
     skipped = 0
     for b in range(q.shape[0]):
-        d, i, s = walk(qs[b].numpy(), ts[b].numpy(), boxes[b], 32, 16)
+        d, i, s, _ = _walk(qs[b].numpy(), ts[b].numpy(), plan, kernel == "nn_tile")
         np.testing.assert_array_equal(d, pd[b].numpy())
         np.testing.assert_array_equal(i, pi[b].numpy())
         skipped += s
@@ -267,3 +323,76 @@ def test_skip_rule_walk_is_exact(name, kernel):
         assert skipped > 0
     if name == "blob_in_cloud" and kernel == "nn_tile":
         assert skipped > 0
+
+
+@pytest.mark.parametrize("plan", [(1, 32), (1, 64), (2, 128)])
+@pytest.mark.parametrize("kernel", ["nn_pruned", "nn_tile"])
+def test_walk_planted_ties_lower_index_visited_later(kernel, plan):
+    """The planted ties of the gpu test (``tiled_ties.planted_ties``):
+    in both walks the tile holding the lower of two equally near targets is
+    staged after the one holding the higher, and only the equality test
+    keeps it; duplicates across a chunk boundary resolve to the lower copy."""
+    q, t, want = planted_ties(plan[1])
+    d, i, _, staged = _walk(q[0], t[0], plan, kernel == "nn_tile")
+    pd, pi = chamfer._nn_sorted_plain(_t(q), _t(t))
+    np.testing.assert_array_equal(i, want)
+    np.testing.assert_array_equal(i, pi[0].numpy())
+    np.testing.assert_array_equal(d, pd[0].numpy())
+    assert staged[0].index(1) < staged[0].index(0)  # tile 1 (index tile_m + 7) first
+
+
+@pytest.mark.parametrize("mt", [1, 2, 5, 16, 100, 1300])
+def test_bitonic_order_equals_repeated_argmin(mt):
+    """K8's one sort of (bound, tile) keys visits the tiles in the order of
+    the earlier repeated argmin (least bound, lowest index on equal bounds, the
+    taken one set to +inf), with many equal bounds and +0."""
+    rng = np.random.RandomState(mt)
+    bounds = (rng.randint(0, 7, mt) * np.float32(0.125)).astype(np.float32)
+    spread = rng.rand(mt) < 0.3
+    bounds[spread] = rng.rand(int(spread.sum())).astype(np.float32)
+    left, argmins = bounds.copy(), []
+    for _ in range(mt):
+        a = int(np.argmin(left))  # the first of equal bounds
+        argmins.append(a)
+        left[a] = np.inf
+    order = (_bitonic(_keys(bounds)) & np.uint64(0xFFFFFFFF)).astype(np.int64)
+    np.testing.assert_array_equal(order, argmins)
+    np.testing.assert_array_equal(order, np.lexsort((np.arange(mt), bounds)))
+
+
+@pytest.mark.parametrize("m", [1, 3000, 16384, 2097152, 2097153, 1 << 22, 1 << 25])
+def test_nn_tiles_fit_widens_k8_tile_until_its_keys_fit(m):
+    """The plan the kernels get at m targets: K8's tile is the narrowest
+    doubling of its wrapper's whose two buffers and padded sort keys fit a
+    block's shared memory (the kernel's own check in nn_tiles_launch); K7's
+    tile is only cut to m."""
+    for name, mod in (("nn_tile", chamfer_tile), ("nn_pruned", chamfer_pruned)):
+        warps, tile_m = chamfer._nn_tiles_fit(name, 100, m, mod._PLAN)
+        assert warps == min(mod._PLAN[0], 2) and tile_m % 32 == 0  # 100 queries, 64 a warp
+        assert chamfer._nn_tiles_shared(name, m, tile_m) <= chamfer._NN_TILES_MAX_SHARED
+        cut = min(mod._PLAN[1], -(-m // 32) * 32)
+        if name == "nn_pruned" or m <= 2097152:
+            assert tile_m == cut
+        else:
+            assert tile_m > cut and chamfer._nn_tiles_shared(name, m, tile_m // 2) > \
+                chamfer._NN_TILES_MAX_SHARED
+
+
+def test_nn_tiles_fit_refuses_k8_beyond_its_keys_and_mirrors_the_kernel():
+    """Beyond 2^25 targets no tile K8 can take holds its keys, and the
+    wrapper refuses before any launch; the Python mirrors of the kernel's
+    constants (queries a thread, chunk, shared memory) equal the source's."""
+    import os
+    import re
+
+    with pytest.raises(ValueError, match="more than its tiles can hold"):
+        chamfer._nn_tiles_fit("nn_tile", 100, (1 << 25) + 1, chamfer_tile._PLAN)
+    src = open(os.path.join(os.path.dirname(chamfer.__file__), os.pardir, "csrc",
+                            "nn_tiles.cuh")).read()
+    const = {k: int(v) for k, v in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+    assert const["kR"] == chamfer._NN_TILES_R and const["kChunk"] == chamfer._NN_TILES_CHUNK
+    static = re.search(r"kTilesStaticShared = kTilesMaxWarps \* \(1 \+ 6\) \* 4;", src)
+    assert static and re.search(r"__shared__ int next_step\[kTilesMaxWarps\];", src)
+    assert re.search(r"__shared__ float warp_box\[kTilesMaxWarps\]\[6\];", src)
+    assert chamfer._NN_TILES_MAX_SHARED == \
+        const["kTilesMaxShared"] - const["kTilesMaxWarps"] * 7 * 4

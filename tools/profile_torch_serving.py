@@ -42,8 +42,9 @@ GROUPS = (
     ("K5 nn_grad", ("nn_grad_kernel",)),
     ("K6 emd_cost", ("emd_fill_kernel", "emd_row_kernel", "emd_col_kernel",
                      "emd_reduce_kernel")),
-    ("K7 nn_pruned", ("nn_pruned_kernel",)),
-    ("K8 nn_tile", ("nn_tile_kernel",)),
+    ("K7 nn_pruned", ("nn_tiles_kernel<false",)),
+    ("K8 nn_tile", ("nn_tiles_kernel<true",)),
+    ("boxes K6-K8", ("run_boxes_kernel",)),
     ("matmul", ("gemm", "cutlass", "cublas", "sm90_xmma", "ampere")),
     ("sort", ("sort", "radix")),
     ("index/scatter", ("index", "scatter", "gather")),
