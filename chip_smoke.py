@@ -23,16 +23,34 @@
    random-init outputs and on a ragged pair, bit-equal with its skip rule
    off, with the share of tile pairs it skips at each level and its time
    with each switchable design step off;
-3. serves 16 synthetic clouds in the PCN layout through
-   ``rfnet_tpu_torch.eval.main`` on the card with a random-init full-width
-   RFNet, checks the CSV, and checks the kernels that run launched; then
-   serves the first 4 clouds again on the CPU with the plain versions and
-   holds the card's CSV to it;
+3. serves 16 synthetic clouds in the PCN layout (the first of the
+   64-cloud held-out set ``synthetic_pairs(64, seed=1234)``) through
+   ``rfnet_tpu_torch.eval.main`` on the card with the converged weights
+   ``weights/rfnet_r4_105000.npz`` (``tools/export_torch_weights.py``
+   writes them from ``run_r4/bestrecord``), reading the .pcd files with the
+   native codec; checks the kernels that run launched, holds every row's cd
+   and fidelity to the JAX CPU eval of the same weights and clouds
+   (``weights/rfnet_r4_105000.jax_cpu.csv``, 1e-3 relative), prints the
+   difference from the TPU eval (``run_r4/results_synth``) and the mean cd;
+   then serves the first 4 clouds again on the CPU with the plain versions
+   and holds the card's CSV to it;
+3b. on the converged model's outputs for those clouds (batch 4) and for
+   the held-out set's first 32 (the losses' pair, batch 32): K3 and K8 on
+   the metrics' three scans and on the pair both ways, K7 at the op API's
+   shape, K6 on an eval batch of 4, each held to its plain version, with
+   the share of dense pairs each scans; one b32 train step from the
+   converged weights under "dyn" and under "tile", with the card's time of
+   the step and of K3 and K8;
 4. trains the full-width RFNet at batch 32 on synthetic clouds through
    ``rfnet_tpu_torch.train.train``: 4 Adam steps with two evals and two
    checkpoints, then a resume that takes one more step; checks the losses,
    the files, the resume and the launch counts of every kernel; times the
    train step and the eval;
+4b. writes 64 full-width synthetic pairs as a tensorpack LMDB and trains
+   from it through ``rfnet_tpu_torch.train.main --train_path --val_path``
+   at batch 32: 2 steps, one eval of the 64 pairs and one checkpoint; checks
+   the losses, the files and the launch counts, and holds the first batch
+   and loss to a step on the synthetic dataflow over the same pairs;
 5. runs one full-width train step at batch 2 on the card and on the CPU
    from the same weights and batch and holds the two to each other;
 6. times the full-width forward at batch 32;
@@ -44,7 +62,9 @@
    holds one full-width train step at batch 32 and one eval batch of 4 (CD
    and fidelity) to the "dyn" backend from the same weights and batch, with
    exact launch counts, timing both;
-9. prints the per-kernel JSON line, then ``{"ok": true, "device": ...}``.
+9. prints whether the native .pcd codec was built and how often it read,
+   the per-kernel JSON line (with the converged b32 step's times), then
+   ``{"ok": true, "device": ...}``.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 It needs the rest of the repository: alone, or without a card, it fails.
@@ -737,7 +757,9 @@ def cross_check_step(dev):
 
 
 def write_evalset(root: str, num: int) -> list[str]:
-    """``num`` synthetic clouds laid out like the PCN test set (8 synsets)."""
+    """``num`` synthetic clouds laid out like the PCN test set (8 synsets),
+    as ``tools/make_synthetic_evalset.py --pcn_layout`` dumps them: the .pcd
+    files under ``root/data`` and their ids in ``root/test.list``."""
     from rfnet_tpu_torch.data.dataset import synthetic_pairs
     from rfnet_tpu_torch.data.pcd_io import save_pcd
 
@@ -751,6 +773,8 @@ def write_evalset(root: str, num: int) -> list[str]:
             os.makedirs(os.path.dirname(path), exist_ok=True)
             save_pcd(path, cloud)
         ids.append(mid)
+    with open(os.path.join(root, "test.list"), "w") as f:
+        f.write("\n".join(ids))
     return ids
 
 
@@ -765,50 +789,97 @@ def run_eval(argv: list[str]) -> str:
     return text
 
 
-def read_rows(results_dir: str) -> list[list[str]]:
-    with open(os.path.join(results_dir, "results.csv")) as f:
+WEIGHTS = os.path.join(HERE, "weights", "rfnet_r4_105000.npz")
+# the JAX eval CLI on the CPU with those weights over the same 16 clouds
+# (tools/export_torch_weights.py), and the same eval of 64 clouds on a TPU
+# whose MLPs truncate their inputs to bf16 (information only)
+JAX_CPU_CSV = os.path.join(HERE, "weights", "rfnet_r4_105000.jax_cpu.csv")
+TPU_CSV = os.path.join(HERE, "run_r4", "results_synth", "results.csv")
+NUM_SERVE = 16
+
+
+def read_rows(path: str) -> list[list[str]]:
+    """The rows of an ``id,cd,emd`` CSV (a directory: its results.csv)."""
+    if os.path.isdir(path):
+        path = os.path.join(path, "results.csv")
+    with open(path) as f:
         rows = list(csv.reader(f))
-    check(rows[0] == ["id", "cd", "emd"], f"CSV header {rows[0]}")
+    check(rows[0] == ["id", "cd", "emd"], f"{path}: CSV header {rows[0]}")
     return rows[1:]
 
 
+def max_rel(rows: list[list[str]], ref: list[list[str]]) -> float:
+    return max(abs(float(a) - float(b)) / abs(float(b))
+               for r, f in zip(rows, ref, strict=True) for a, b in zip(r[1:], f[1:]))
+
+
 def serve(dev):
-    """Phase 3: the serving path end to end; returns the launch counts."""
+    """Phase 3: the serving path end to end on the converged weights;
+    returns the launch counts."""
+    import numpy as np
     import torch
 
     from rfnet_tpu_torch import kernels
-    from rfnet_tpu_torch.models import RFNet
+    from rfnet_tpu_torch.data import native
+    from rfnet_tpu_torch.data.dataset import synthetic_pairs
 
-    ids = write_evalset(WORK, 16)
-    with open(os.path.join(WORK, "test.list"), "w") as f:
-        f.write("\n".join(ids))
+    ids = write_evalset(WORK, NUM_SERVE)
+    # the 16 clouds are the first of the 64-cloud held-out set the TPU CSV scored
+    for (_, p16, g16), (_, p64, g64) in zip(synthetic_pairs(NUM_SERVE, seed=1234),
+                                            synthetic_pairs(64, seed=1234)):
+        check(np.array_equal(p16, p64) and np.array_equal(g16, g64),
+              "synthetic_pairs(16, seed=1234) is not the prefix of synthetic_pairs(64)")
+    jax_rows = read_rows(JAX_CPU_CSV)
+    tpu_rows = read_rows(TPU_CSV)[:NUM_SERVE]
+    check([r[0] for r in jax_rows] == ids, f"the JAX CPU CSV's ids {[r[0] for r in jax_rows]} "
+          f"are not the served clouds' {ids}")
+    check([r[0].split("/")[1] for r in jax_rows] == [r[0].split("/")[1] for r in tpu_rows]
+          == [f"{i:06d}" for i in range(NUM_SERVE)], "the reference CSVs' rows are not the "
+          "clouds 0-15 of the held-out set in order")
     with open(os.path.join(WORK, "ref.list"), "w") as f:
         f.write("\n".join(ids[:4]))
-    ckpt = os.path.join(WORK, "model.pt")
-    torch.save(RFNet(generator=torch.Generator().manual_seed(0)).state_dict(), ckpt)
-    common = ["--data_dir", os.path.join(WORK, "data"), "--checkpoint", ckpt,
+    common = ["--data_dir", os.path.join(WORK, "data"), "--checkpoint", WEIGHTS,
               "--num_gt_points", "16384", "--plot_freq", "8", "--batch_size", str(B)]
 
     torch.cuda.reset_peak_memory_stats(dev)
+    reads = native.reads
     kernels.reset_launch_counts()
     text = run_eval(["--list_path", os.path.join(WORK, "test.list"),
                      "--results_dir", os.path.join(WORK, "gpu"), "--device", "cuda", *common])
     counts = dict(kernels.launches)
     peak = torch.cuda.max_memory_allocated(dev)
-    n_batches = 16 // B
+    native_reads = native.reads - reads
+    n_batches = NUM_SERVE // B
     print(f"launches in the serving run: {counts} (expected fps {n_batches}, "
           f"nn_coords {3 * n_batches}, nn_dyn {3 * n_batches})")
     check(counts == {k: n_batches * v for k, v in SERVE_LAUNCHES.items()},
           f"launch counts {counts}")
+    check("step 105000" in text, "the converged checkpoint's step was not printed")
+    check(native.get_lib() is not None, "the native .pcd codec did not build")
+    check(native_reads == 2 * NUM_SERVE, f"the native codec read {native_reads} of the "
+          f"{2 * NUM_SERVE} .pcd files")
     avg = re.search(r"Average time: ([0-9.eE+-]+)", text)
     check(avg is not None, "no 'Average time' line")
-    print(f"serving: Average time {float(avg.group(1)):.6f} s/cloud (batch {B}, models 12-15), "
-          f"max_memory_allocated {peak} bytes")
+    print(f"serving the converged weights (step 105000): Average time "
+          f"{float(avg.group(1)):.6f} s/cloud (batch {B}, models 12-15), max_memory_allocated "
+          f"{peak} bytes")
 
     gpu_rows = read_rows(os.path.join(WORK, "gpu"))
     check([r[0] for r in gpu_rows] == ids, "CSV ids differ from the list")
     vals = [float(v) for r in gpu_rows for v in r[1:]]
     check(all(math.isfinite(v) and v > 0 for v in vals), "non-finite or non-positive metric")
+    # the JAX CPU eval of the same weights and clouds: its metric expands
+    # |t|^2 - 2 q.t (1e-4 relative off float64 on these weights), the port
+    # sums squared differences, and near-tie merges may pick another
+    # neighbour, so each cd and fidelity agrees to 1e-3 relative
+    jax_rel = max_rel(gpu_rows, jax_rows)
+    check(jax_rel <= 1e-3, f"the card's CSV is {jax_rel:.3g} relative off the JAX CPU CSV")
+    mean_cd = sum(float(r[1]) for r in gpu_rows) / len(gpu_rows)
+    print(f"serving: cd and fidelity of all {NUM_SERVE} clouds within {jax_rel:.3g} relative of "
+          f"the JAX CPU eval (limit 1e-3); the TPU eval's rows (MLP inputs in bf16, information "
+          f"only) {max_rel(gpu_rows, tpu_rows):.3g}; mean cd {mean_cd:.6f} (JAX CPU "
+          f"{sum(float(r[1]) for r in jax_rows) / len(jax_rows):.6f}, TPU "
+          f"{sum(float(r[1]) for r in tpu_rows) / len(tpu_rows):.6f})")
 
     # the same weights and clouds on the CPU, through the plain versions;
     # CPU and card sum the MLP matmuls in other orders (float32 throughout)
@@ -820,7 +891,180 @@ def serve(dev):
         for gv, cv in zip(g[1:], c[1:]):
             rel = abs(float(gv) - float(cv)) / abs(float(cv))
             check(rel <= 1e-3, f"{g[0]}: card {gv} vs cpu {cv} (rel {rel:.3g})")
-    print("serving: 16 finite CSV rows; first 4 match the CPU reference within 1e-3 relative")
+    print(f"serving: {NUM_SERVE} finite CSV rows; first 4 match the CPU reference within 1e-3 "
+          f"relative; the native .pcd codec read all {native_reads} files")
+    return counts
+
+
+def converged_model(dev):
+    """The converged RFNet on ``dev``, in eval mode."""
+    from rfnet_tpu_torch.eval import load_state
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        return load_state(WEIGHTS).to(dev).eval()
+
+
+def step_device_ms(fn, iters: int) -> tuple[float, dict]:
+    """Device time of a call of ``fn`` from ``torch.profiler``: all its
+    kernels, and those of K3 ("nn_dyn_kernel") and K8's walk and box pass
+    ("nn_tiles_kernel", "run_boxes_kernel"), in ms a call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    total = sum(e.device_time_total for e in events) / 1e3 / iters
+    check(total > 0, "the profiler recorded no device time for the train step")
+    by = {name: sum(e.device_time_total for e in events if any(k in e.key for k in keys))
+          / 1e3 / iters for name, keys in (("K3", ("nn_dyn_kernel",)),
+                                           ("K8", TILED_KERNELS))}
+    return total, by
+
+
+def converged_kernels(dev, rows: dict) -> None:
+    """Phase 3b: K3, K8, K7 and K6 on the converged model's outputs, bit for
+    bit against their plain versions (K6 within 2e-4); then one b32 train
+    step from the converged weights under "dyn" and under "tile", timed on
+    the card: the input to the sorted-space backend decision."""
+    import numpy as np
+    import torch
+
+    from rfnet_tpu_torch import kernels, train
+    from rfnet_tpu_torch.data.dataset import synthetic_pairs
+    from rfnet_tpu_torch.ops import chamfer
+
+    pairs = list(synthetic_pairs(32, seed=1234))  # the held-out set's first 32
+    partial = torch.from_numpy(np.stack([p for _, p, _ in pairs])).to(dev)
+    gt = torch.from_numpy(np.stack([g for _, _, g in pairs])).to(dev)
+    model = converged_model(dev)
+    with torch.inference_mode():
+        res = model(partial)
+    out3, out4 = res.out3.clone(), res.out4.clone()
+    p4, g4, o4 = (x[:B].contiguous() for x in (partial, gt, out4))
+    gt2, pair = torch.cat([gt, gt], 0), torch.cat([out3, out4], 0)
+    z = lambda x: chamfer.sort_by_z_with_order(x.contiguous())[0]  # noqa: E731
+    # cdist's (64, 16384, 16384) matrix of the pair would take 64 GiB
+    cases = [("converged out->gt", o4, g4, True), ("converged gt->out", g4, o4, True),
+             ("converged partial->out", p4, o4, True),
+             ("converged pair gt->out", gt2, pair, False),
+             ("converged pair out->gt", pair, gt2, False)]
+    for name, q, t, library in cases:
+        record(rows, "nn_dyn", name, check_k3(name, z(q), z(t), library))
+        record(rows, "nn_tile", name, check_tiled("nn_tile", name, q.contiguous(),
+                                                   t.contiguous(), library))
+    record(rows, "nn_pruned", "converged op API out->partial",
+           check_tiled("nn_pruned", "converged op API out->partial", o4, p4))
+    record(rows, "emd_cost", "converged (4,16384,3)x(4,16384,3)", check_k6("converged", g4, o4))
+
+    # one b32 train step from the converged weights under each backend
+    config = train.TrainConfig(batch_size=32)
+    n1, n2 = 2 * config.n_seed, 2 * config.n_seed * config.up_ratio
+    state_dict = model.state_dict()
+    res = {}
+    try:
+        for backend in ("dyn", "tile"):
+            chamfer._NN_SORTED_BACKEND = backend
+            state = train.create_state(config, dev)
+            state.model.load_state_dict(state_dict)
+            kernels.reset_launch_counts()
+            lb, _ = train.train_step(state, partial, gt, n1=n1, n2=n2)
+            torch.cuda.synchronize(dev)
+            counts = dict(kernels.launches)
+            step = lambda: train.train_step(state, partial, gt, n1=n1, n2=n2)  # noqa: E731
+            wall = cuda_ms(step, 3, warmup=1)
+            dev_ms, by = step_device_ms(step, 3)
+            res[backend] = ({k: float(v) for k, v in lb._asdict().items()}, counts, wall,
+                            dev_ms, by)
+    finally:
+        chamfer._NN_SORTED_BACKEND = "dyn"
+    (ld, cd_, wd, dd, byd), (lt, ct, wt, dt, byt) = res["dyn"], res["tile"]
+    check(cd_ == STEP_LAUNCHES and ct == under_tile_backend(STEP_LAUNCHES),
+          f"converged step launch counts: dyn {cd_}, tile {ct}")
+    check(all(math.isfinite(v) for v in ld.values()), f"converged step losses {ld}")
+    worst = max(abs(ld[k] - lt[k]) / max(abs(ld[k]), 1e-30) for k in ld)
+    check(worst <= 1e-5, f"converged step: tile loss terms {lt} vs dyn {ld}")
+    print(f"converged b32 train step (first loss {ld['total']:.6f}; tile within {worst:.3g} "
+          f"relative): dyn {wd:.3f} ms to synchronize, {dd:.3f} ms on the card, K3 "
+          f"{byd['K3']:.3f} ms; tile {wt:.3f} ms, {dt:.3f} ms on the card, K8 (walk and box "
+          f"pass) {byt['K8']:.3f} ms")
+    rows["converged_step"] = {"dyn": {"ms": wd, "device_ms": dd, "k3_device_ms": byd["K3"]},
+                              "tile": {"ms": wt, "device_ms": dt, "k8_device_ms": byt["K8"]}}
+
+
+def lmdb_train_run(dev) -> dict:
+    """Phase 4b: the trainer's CLI on a tensorpack LMDB of 64 full-width
+    synthetic pairs at batch 32, 2 steps, one eval of the 64 items and one
+    checkpoint; its first loss held to a step from the same initial weights
+    on the synthetic dataflow's first batch over the same items. Returns the
+    launch counts."""
+    import numpy as np
+    import torch
+
+    from rfnet_tpu_torch import kernels, train
+    from rfnet_tpu_torch.data.convert import write_tensorpack_lmdb
+    from rfnet_tpu_torch.data.dataset import synthetic_dataflow, synthetic_pairs
+
+    db = os.path.join(WORK, "pcn.lmdb")
+    t0 = time.time()
+    n = write_tensorpack_lmdb(db, synthetic_pairs(64, 6000, 16384, seed=0))
+    print(f"LMDB: {n} pairs (6000-point partials, 16384-point gts) written, "
+          f"{os.path.getsize(db)} bytes, {time.time() - t0:.2f} s")
+    root = os.path.join(WORK, "lmdb_run")
+    workdir = os.path.join(root, "model")
+    taken = []
+    step_fn = train.train_step
+
+    def recording_step(state, partial, gt, **kw):
+        out = step_fn(state, partial, gt, **kw)
+        taken.append((partial.cpu(), gt.cpu(), {k: float(v) for k, v in out[0]._asdict().items()}))
+        return out
+
+    train.train_step = recording_step
+    buf = io.StringIO()
+    try:
+        kernels.reset_launch_counts()
+        with contextlib.redirect_stdout(buf):
+            train.main(["--train_path", db, "--val_path", db, "--batch_size", "32", "--steps",
+                        "2", "--ckpt_every", "2", "--workdir", workdir, "--device", "cuda"])
+        torch.cuda.synchronize(dev)
+        counts = dict(kernels.launches)
+    finally:
+        train.train_step = step_fn
+    print(buf.getvalue(), end="")
+    want = expected_launches(2, 64 // 4)
+    check(counts == want, f"LMDB train launch counts {counts} (expected {want}: 2 steps and "
+          f"16 eval batches at the synthetic run's rates)")
+    check(len(taken) == 2 and all(math.isfinite(v) for _, _, lb in taken for v in lb.values()),
+          f"LMDB steps {[lb for _, _, lb in taken]}")
+    check(sorted(os.listdir(workdir)) == ["ckpt_2.pt"], "LMDB run checkpoint")
+    check(sorted(os.listdir(os.path.join(root, "bestrecord"))) == ["best.json", "model.pt"],
+          "LMDB run best record")
+    check("eval @ 2:" in buf.getvalue(), "LMDB run eval")
+
+    # the synthetic dataflow over the same 64 items, from the same initial weights
+    df, _ = synthetic_dataflow(64, 32, 3000, 16384)
+    it = iter(df)
+    _, sp, _, sg = next(it)
+    it.close()
+    lp, lg, llb = taken[0]
+    check(np.array_equal(lp.numpy(), sp) and np.array_equal(lg.numpy(), sg),
+          "the LMDB dataflow's first batch differs from the synthetic dataflow's")
+    config = train.TrainConfig(batch_size=32)
+    state = train.create_state(config, dev)
+    slb, _ = step_fn(state, torch.from_numpy(sp).to(dev), torch.from_numpy(sg).to(dev),
+                     n1=2 * config.n_seed, n2=2 * config.n_seed * config.up_ratio)
+    stotal = float(slb.total)
+    rel = abs(llb["total"] - stotal) / abs(stotal)
+    check(rel <= 1e-6, f"LMDB first loss {llb['total']} vs synthetic {stotal} (rel {rel:.3g})")
+    print(f"LMDB train: 2 steps (losses {llb['total']:.6f}, {taken[1][2]['total']:.6f}), one "
+          f"eval of 16 batches, checkpoint and best record written; launches {counts}; first "
+          f"batch equal to the synthetic dataflow's, first loss within {rel:.3g} relative of "
+          f"the synthetic-fed step's ({stotal:.6f})")
     return counts
 
 
@@ -1221,6 +1465,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     from rfnet_tpu_torch import kernels  # absent when run outside the repository
+    from rfnet_tpu_torch.data import native
 
     dev = torch.device("cuda", 0)
     smi = subprocess.run(
@@ -1244,7 +1489,9 @@ def main() -> int:
         check_train_kernels(dev, rows)
         check_tiled_kernels(dev, rows)
         serve_counts = serve(dev)
+        converged_kernels(dev, rows)
         train_counts = train_run(dev)
+        lmdb_counts = lmdb_train_run(dev)
         cross_check_step(dev)
         forward_throughput(dev)
         ops_counts = op_api(dev)
@@ -1260,8 +1507,8 @@ def main() -> int:
            "emd_cost": ("emd_cost.cu", "rfnet_tpu/ops/pallas/emd.py:347", "train"),
            "nn_pruned": ("nn_pruned.cu", "rfnet_tpu/ops/pallas/chamfer_pruned.py:128", "ops"),
            "nn_tile": ("nn_tile.cu", "rfnet_tpu/ops/pallas/chamfer_tile.py:214", "tile")}
-    by_path = {"serve": serve_counts, "train": train_counts, "ops": ops_counts,
-               "tile": tile_counts}
+    by_path = {"serve": serve_counts, "train": train_counts, "lmdb": lmdb_counts,
+               "ops": ops_counts, "tile": tile_counts}
     for name, (_, _, path) in src.items():
         check(by_path[path][name] > 0, f"{name} was not launched on the {path} path")
     line = {"kernels": [
@@ -1270,7 +1517,10 @@ def main() -> int:
          "launches_by_path": {p: c.get(name, 0) for p, c in by_path.items()},
          "pass": True, **rows[name]}
         for name, (file, replaces, path) in src.items()
-    ]}
+    ], "converged_step": rows["converged_step"]}
+    lib = native.get_lib()
+    check(lib is not None, "the native .pcd codec did not build")
+    print(f"native .pcd codec: built ({lib._name}), used for {native.reads} reads in this run")
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

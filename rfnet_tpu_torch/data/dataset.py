@@ -1,16 +1,30 @@
-"""Resampling, synthetic clouds and the training dataflow — copies of the
-JAX package's ``resample_pcd``, ``synthetic_pairs``, ``BatchedDataflow`` and
-``synthetic_dataflow`` (``rfnet_tpu/data/dataset.py``), producing the same
-arrays in the same order from the same seeds. The LMDB source
-(``lmdb_dataflow``) is not ported yet (ROADMAP.md)."""
+"""Resampling, the data sources and the training dataflow — copies of the
+JAX package's ``rfnet_tpu/data/dataset.py`` (``resample_pcd``,
+``synthetic_pairs``, ``dir_source``, the tensorpack LMDB decoding,
+``BatchedDataflow``, ``lmdb_dataflow`` and ``synthetic_dataflow``),
+producing the same arrays in the same order from the same seeds.
+
+Sources:
+  * ``lmdb_dataflow`` — a tensorpack ``LMDBSerializer`` database (the PCN
+    training data), read with the pure-Python engine
+    :mod:`rfnet_tpu_torch.data.lmdb_pure` and the codec
+    :mod:`rfnet_tpu_torch.data.msgpack_lite`: no ``lmdb`` or ``msgpack``
+    package is needed;
+  * ``dir_source`` — a directory of ``.npz`` files with ``partial``/``gt``
+    arrays (``rfnet_tpu_torch.data.convert`` writes them);
+  * ``synthetic_pairs`` — deterministic random clouds for tests and benches.
+"""
 
 from __future__ import annotations
 
+import os
 import queue
 import threading
 from collections.abc import Iterator
 
 import numpy as np
+
+from rfnet_tpu_torch.data import lmdb_pure, msgpack_lite
 
 _SEED = 1  # the JAX package's BatchedDataflow default
 _PREFETCH = 8
@@ -44,6 +58,70 @@ def synthetic_pairs(
         side = (gt @ normal) > np.median(gt @ normal)
         part = resample_pcd(gt[side], input_size, rng)
         yield f"synthetic/{i:06d}", part.astype(np.float32), gt.astype(np.float32)
+
+
+def dir_source(path: str):
+    """A directory of .npz files, each with ``partial`` and ``gt`` arrays.
+    Returns (ids, load_fn)."""
+    files = sorted(f for f in os.listdir(path) if f.endswith(".npz"))
+    ids = [os.path.splitext(f)[0] for f in files]
+
+    def load(i: int):
+        with np.load(os.path.join(path, files[i])) as z:
+            return ids[i], z["partial"], z["gt"]
+
+    return ids, load
+
+
+def _decode_msgpack_array(obj):
+    """One msgpack-numpy array (``{b"nd": True, b"type": dtype str,
+    b"shape": [...], b"data": bytes}``, or the same with str keys as an
+    older writer packed them) as an ndarray; any other object unchanged."""
+    if isinstance(obj, dict):
+        for nd_key, type_key, shape_key, data_key in (
+            (b"nd", b"type", b"shape", b"data"),
+            ("nd", "type", "shape", "data"),
+        ):
+            if obj.get(nd_key) is True and data_key in obj:
+                return np.frombuffer(obj[data_key], dtype=np.dtype(obj[type_key])).reshape(
+                    obj[shape_key])
+    return obj
+
+
+def decode_datapoint(raw: bytes):
+    """One LMDBSerializer value, a msgpack list ``[id, partial, gt]`` with
+    msgpack-numpy arrays: returns (id str, partial (p, 3), gt (g, 3))."""
+    dp = [_decode_msgpack_array(x) for x in msgpack_lite.unpackb(raw)]
+    ident = dp[0]
+    if isinstance(ident, bytes):
+        ident = ident.decode("utf-8")
+    return ident, np.asarray(dp[1]), np.asarray(dp[2])
+
+
+def decode_key_list(keys_raw: bytes | None, cursor_keys=None):
+    """LMDBSerializer's key order: the msgpack'd list under ``b"__keys__"``;
+    where it is absent, cursor order without that meta key."""
+    if keys_raw is not None:
+        return list(msgpack_lite.unpackb(keys_raw))
+    return [k for k in (cursor_keys or []) if k != b"__keys__"]
+
+
+def _lmdb_items(lmdb_path: str):
+    """(size, load_fn) over a tensorpack LMDBSerializer database, a file or a
+    directory holding ``data.mdb``."""
+    env = lmdb_pure.open(lmdb_path, subdir=os.path.isdir(lmdb_path), readonly=True,
+                         lock=False)
+    with env.begin() as txn:
+        keys = decode_key_list(txn.get(b"__keys__"), (k for k, _ in txn.cursor()))
+
+    def load(i: int):
+        key = keys[i]
+        if isinstance(key, str):
+            key = key.encode("utf-8")
+        with env.begin() as txn:
+            return decode_datapoint(txn.get(key))
+
+    return len(keys), load
 
 
 class BatchedDataflow:
@@ -121,6 +199,14 @@ class BatchedDataflow:
                 yield item
         finally:
             stop.set()
+
+
+def lmdb_dataflow(lmdb_path: str, batch_size: int, input_size: int, output_size: int,
+                  is_training: bool):
+    """The reference's entry (``data_util.py:73-87``) over a tensorpack
+    LMDBSerializer database: returns (df, size)."""
+    size, load = _lmdb_items(lmdb_path)
+    return BatchedDataflow(size, load, batch_size, input_size, output_size, is_training), size
 
 
 def synthetic_dataflow(num: int, batch_size: int, input_size: int, output_size: int,

@@ -1,9 +1,11 @@
-"""Point Cloud Data (.pcd) file I/O — pure numpy.
+"""Point Cloud Data (.pcd) file I/O.
 
-A copy of the JAX package's numpy codec (``rfnet_tpu/data/pcd_io.py``:
-``_read_pcd_py``, ``save_pcd``), kept here so the port imports nothing of
-that package. Reads ascii, binary and binary_compressed xyz clouds; writes
-ascii with 9 significant digits, which round-trips float32 exactly.
+A copy of the JAX package's codec (``rfnet_tpu/data/pcd_io.py``), kept here
+so the port imports nothing of that package: ``read_pcd`` reads with the
+native C++ codec (:mod:`rfnet_tpu_torch.data.native`) where it builds, and
+with the numpy parser ``_read_pcd_py`` otherwise. Both read ascii, binary
+and binary_compressed xyz clouds; ``save_pcd`` writes ascii with 9
+significant digits, which round-trips float32 exactly.
 """
 
 from __future__ import annotations
@@ -12,12 +14,23 @@ import struct
 
 import numpy as np
 
+from rfnet_tpu_torch.data.native import read_pcd_native
+
 _DTYPES = {("F", 4): "f4", ("F", 8): "f8", ("I", 4): "i4", ("U", 4): "u4",
            ("I", 1): "i1", ("U", 1): "u1", ("I", 2): "i2", ("U", 2): "u2"}
 
 
 def read_pcd(filename: str) -> np.ndarray:
-    """Read a .pcd file, returning the (n, 3) xyz float64 array."""
+    """Read a .pcd file, returning the (n, 3) xyz float64 array: with the
+    native codec first, with the numpy parser where it is unavailable or
+    refuses the file."""
+    native = read_pcd_native(filename)
+    if native is not None:
+        return native
+    return _read_pcd_py(filename)
+
+
+def _read_pcd_py(filename: str) -> np.ndarray:
     with open(filename, "rb") as f:
         header = {}
         while True:

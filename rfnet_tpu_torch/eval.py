@@ -10,13 +10,18 @@ Port of ``rfnet_tpu/eval.py`` (synchronous path, one device):
     first 10 models as warmup) and the overall and per-category means;
   * optional three-view plots every ``--plot_freq`` models and .pcd dumps.
 
-Weights come from a ``torch.save``d ``state_dict`` (``--checkpoint``; a
-flax tree converts with ``rfnet_tpu_torch.compat.convert``). The model's
-size is read off the state_dict. Runs on ``--device cuda`` unless asked
-for ``cpu``; a request for ``cuda`` without a card is an error.
+Weights (``--checkpoint``) come from a ``torch.save``d ``state_dict``
+(``.pt``) or from an ``.npz`` of flat flax params (``{"a/b/leaf": array}``,
+with the training step under ``__step__``), such as the converged
+``weights/rfnet_r4_105000.npz`` that ``tools/export_torch_weights.py``
+writes; legacy shared step biases are upgraded on the way
+(``compat.ckpt_compat``). The model's size is read off the weights. Runs on
+``--device cuda`` unless asked for ``cpu``; a request for ``cuda`` without a
+card is an error.
 
     python -m rfnet_tpu_torch.eval --list_path test.list --data_dir test \\
-        --checkpoint model.pt --results_dir results/recon --batch_size 4
+        --checkpoint weights/rfnet_r4_105000.npz --results_dir results/recon \\
+        --batch_size 4
 """
 
 from __future__ import annotations
@@ -32,6 +37,8 @@ import time
 import numpy as np
 import torch
 
+from rfnet_tpu_torch.compat import ckpt_compat
+from rfnet_tpu_torch.compat.convert import flax_to_state_dict
 from rfnet_tpu_torch.data.dataset import resample_pcd
 from rfnet_tpu_torch.data.pcd_io import read_pcd, save_pcd
 from rfnet_tpu_torch.models import RFNet
@@ -53,14 +60,34 @@ def _model_for(state_dict: dict) -> RFNet:
     return RFNet(n_seed=n_seed, up_ratio=up_ratio)
 
 
+def _load_npz(checkpoint: str) -> RFNet:
+    """The model of an ``.npz`` of flat flax params, its size read off the
+    kernels: legacy shared step biases upgraded (``ckpt_compat``), renamed
+    (``flax_to_state_dict``) and loaded strictly. Prints the training step
+    stored in the file."""
+    with np.load(checkpoint) as z:
+        flat = {k: z[k] for k in z.files if not k.startswith("__")}
+        step = int(z["__step__"]) if "__step__" in z.files else None
+    print(f"checkpoint {checkpoint}: step {step}")
+    model = _model_for(flax_to_state_dict(flat))
+    flat, upgraded = ckpt_compat.upgrade(flat, ckpt_compat.expected_shapes(model.state_dict()))
+    if upgraded:
+        print("checkpoint upgraded from legacy shared-bias layout")
+    model.load_state_dict(flax_to_state_dict(flat), strict=True)
+    return model
+
+
 def load_state(checkpoint: str) -> RFNet:
-    """The model with weights from ``checkpoint`` (a saved state_dict).
+    """The model with weights from ``checkpoint``: a saved state_dict
+    (``.pt``) or an ``.npz`` of flat flax params.
 
     When the file is absent, warns and returns the full-size model's random
     init, drawn from a generator seeded ``RANDOM_INIT_SEED``."""
     if not os.path.isfile(checkpoint):
         print(f"WARNING: no checkpoint at {checkpoint}; evaluating random init")
         return RFNet(generator=torch.Generator().manual_seed(RANDOM_INIT_SEED))
+    if checkpoint.endswith(".npz"):
+        return _load_npz(checkpoint)
     state_dict = torch.load(checkpoint, map_location="cpu", weights_only=True)
     model = _model_for(state_dict)
     model.load_state_dict(state_dict, strict=True)

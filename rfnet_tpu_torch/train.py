@@ -1,10 +1,16 @@
 """Training loop — port of ``rfnet_tpu/train.py`` (one device, float32).
 
+    python -m rfnet_tpu_torch.train --train_path train.lmdb \\
+        --val_path valid.lmdb --workdir runs/modelvv_recon   # PCN, on the card
     python -m rfnet_tpu_torch.train --synthetic --steps 4 --ckpt_every 2 \\
-        --workdir runs/modelvv_recon            # on the card (the default)
+        --workdir runs/modelvv_recon
     python -m rfnet_tpu_torch.train --synthetic --device cpu --innum 64 \\
         --ptnum 128 --n_seed 4 --up_ratio 4 --batch_size 2 --steps 4 --ckpt_every 2
 
+* Data: without ``--synthetic`` the PCN tensorpack LMDB files
+  ``--train_path`` (shuffled) and ``--val_path`` (in order, ``eval_size`` a
+  batch), read by ``data.dataset.lmdb_dataflow``; one process is shard 0 of
+  1.
 * One train step = the model's forward, ``losses.total_loss`` (with the 64-
   and 1 024-point FPS pyramids of the ground truth made in the step, as the
   reference makes them in its graph), the backward and one Adam update.
@@ -37,6 +43,7 @@ import glob
 import json
 import os
 import re
+import sys
 import time
 
 import numpy as np
@@ -270,8 +277,15 @@ def train(config: TrainConfig, train_df, valid_df, valid_num: int,
     return state
 
 
+# flags of the JAX package's CLI that the port does not have yet (ROADMAP.md §1)
+_NOT_PORTED = ("--synthetic_online", "--preload_device", "--mesh", "--distributed",
+               "--tb_histograms", "--profile_dir", "--debug_nans")
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description="RFNet training (PyTorch port)")
+    p.add_argument("--train_path", default="../../dense_data/train.lmdb")
+    p.add_argument("--val_path", default="../../dense_data/valid.lmdb")
     p.add_argument("--synthetic", action="store_true", help="train on synthetic clouds")
     p.add_argument("--synthetic_size", type=int, default=256)
     p.add_argument("--synthetic_val_size", type=int, default=None,
@@ -289,6 +303,9 @@ def main(argv=None):
     p.add_argument("--up_ratio", type=int, default=None, help="upsampling factor (16)")
     p.add_argument("--workdir", default="./modelvv_recon")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    given = {a.split("=")[0] for a in (sys.argv[1:] if argv is None else argv)}
+    for flag in sorted(given.intersection(_NOT_PORTED)):
+        p.error(f"{flag} is not ported to the PyTorch package yet (ROADMAP.md, modules to port)")
     args = p.parse_args(argv)
 
     config = TrainConfig(workdir=args.workdir)
@@ -308,21 +325,28 @@ def main(argv=None):
         if args.schedule_scale <= 0:
             p.error("--schedule_scale must be > 0")
         config = dataclasses.replace(config, schedule_scale=args.schedule_scale)
-    if not args.synthetic:
-        p.error("only --synthetic data is ported: the LMDB dataflow waits for "
-                "data/lmdb_pure.py (ROADMAP.md, modules to port: data / CLI flags)")
     device = resolve_device(args.device)
 
-    from rfnet_tpu_torch.data.dataset import synthetic_dataflow
+    from rfnet_tpu_torch.data.dataset import lmdb_dataflow, synthetic_dataflow
 
-    train_df, _ = synthetic_dataflow(args.synthetic_size, config.batch_size, config.innum,
-                                     config.ptnum)
-    # held-out split: a disjoint generator seed, so eval measures
-    # generalisation instead of training-set recall
-    val_n = args.synthetic_val_size or max(8, config.eval_size)
-    val_seed = 1234 if args.synthetic_val_size else 0
-    valid_df, valid_num = synthetic_dataflow(val_n, config.eval_size, config.innum,
-                                             config.ptnum, is_training=False, seed=val_seed)
+    if args.synthetic:
+        train_df, _ = synthetic_dataflow(args.synthetic_size, config.batch_size, config.innum,
+                                         config.ptnum)
+        # held-out split: a disjoint generator seed, so eval measures
+        # generalisation instead of training-set recall
+        val_n = args.synthetic_val_size or max(8, config.eval_size)
+        val_seed = 1234 if args.synthetic_val_size else 0
+        valid_df, valid_num = synthetic_dataflow(val_n, config.eval_size, config.innum,
+                                                 config.ptnum, is_training=False, seed=val_seed)
+    else:
+        for flag, path in (("--train_path", args.train_path), ("--val_path", args.val_path)):
+            if not os.path.exists(path):
+                p.error(f"{flag} {path}: no such LMDB file or directory (pass --synthetic to "
+                        "train on synthetic clouds)")
+        train_df, _ = lmdb_dataflow(args.train_path, config.batch_size, config.innum,
+                                    config.ptnum, True)
+        valid_df, valid_num = lmdb_dataflow(args.val_path, config.eval_size, config.innum,
+                                            config.ptnum, False)
     train(config, train_df, valid_df, valid_num, device)
 
 

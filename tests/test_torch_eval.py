@@ -118,8 +118,11 @@ def test_pcd_codec_matches_jax(tmp_path, rng, fmt):
                   f"WIDTH {len(pts)}\nHEIGHT 1\nPOINTS {len(pts)}\nDATA binary\n")
         with open(path, "wb") as f:
             f.write(header.encode() + pts.tobytes())
+    # read_pcd takes the native codec first in both packages, as the numpy
+    # parsers do where it is unavailable
     ours = pcd_io.read_pcd(path)
-    np.testing.assert_array_equal(ours, jpcd._read_pcd_py(path))
+    np.testing.assert_array_equal(ours, jpcd.read_pcd(path))
+    np.testing.assert_array_equal(pcd_io._read_pcd_py(path), jpcd._read_pcd_py(path))
     np.testing.assert_array_equal(ours.astype(np.float32), pts)  # exact round trip
 
 

@@ -197,8 +197,9 @@ def test_ops_reject_bad_input(rng):
 
 
 def test_port_never_imports_jax():
-    """Importing the port and every submodule (the trainer's among them)
-    loads neither JAX nor the JAX package."""
+    """Importing the port and every submodule (the trainer's and the data
+    path's among them) loads neither JAX nor the JAX package, nor the
+    ``msgpack`` and ``lmdb`` packages the card's machine lacks."""
     code = (
         "import sys, pkgutil, importlib, rfnet_tpu_torch\n"
         "names = {m.name for m in pkgutil.walk_packages(rfnet_tpu_torch.__path__,"
@@ -207,13 +208,15 @@ def test_port_never_imports_jax():
         "    importlib.import_module(name)\n"
         "need = {'rfnet_tpu_torch.' + m for m in ('train', 'losses', 'eval', 'ops.emd',"
         " 'ops.nn_grad', 'ops.chamfer', 'ops.chamfer_pruned', 'ops.chamfer_tile', 'ops.grouping',"
-        " 'ops.interpolate', 'ops.auction', 'data.dataset', 'kernels')}\n"
+        " 'ops.interpolate', 'ops.auction', 'data.dataset', 'kernels', 'data.lmdb_pure',"
+        " 'data.msgpack_lite', 'data.convert', 'data.native', 'compat.ckpt_compat')}\n"
         "assert need <= names, need - names\n"
         "import chip_smoke\n"
         "sys.path.insert(0, 'tools')\n"
         "import profile_torch_serving, bench_torch_nn_sorted\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')"
-        " or k == 'rfnet_tpu' or k.startswith('rfnet_tpu.'))\n"
+        " or k == 'rfnet_tpu' or k.startswith('rfnet_tpu.')"
+        " or k.split('.')[0] in ('msgpack', 'lmdb'))\n"
         "print(len(names), bad)\n"
         "assert not bad, bad\n"
     )

@@ -195,8 +195,12 @@ def test_main_synthetic_cpu_checkpoints_eval_best_and_resume(tmp_path, capsys):
 
 def test_main_rejects_unported_data_and_bad_pyramid(tmp_path):
     argv = _tiny_argv(str(tmp_path / "m"), 1)
-    with pytest.raises(SystemExit):
-        train.main([a for a in argv if a != "--synthetic"])
+    with pytest.raises(SystemExit):  # an LMDB that is not there
+        train.main([a for a in argv if a != "--synthetic"]
+                   + ["--train_path", str(tmp_path / "absent.lmdb"),
+                      "--val_path", str(tmp_path / "absent_val.lmdb")])
+    with pytest.raises(SystemExit):  # a data source the port does not have yet
+        train.main(argv + ["--synthetic_online"])
     bad = list(argv)
     bad[bad.index("--ptnum") + 1] = "100"
     with pytest.raises(SystemExit):

@@ -4,12 +4,17 @@
     python3 tools/profile_torch_serving.py [--batch 4] [--iters 5]
     python3 tools/profile_torch_serving.py --mode train --batch 32 [--iters 3]
     python3 tools/profile_torch_serving.py --mode train --batch 32 --backend tile
+    python3 tools/profile_torch_serving.py --checkpoint weights/rfnet_r4_105000.npz
 
 Runs one step under ``torch.profiler``: in ``serve`` mode the serving step of
-``rfnet_tpu_torch.eval`` (full-width random-init RFNet forward + CD/fidelity
-metrics on synthetic clouds), in ``train`` mode ``rfnet_tpu_torch.train``'s
-train step (forward, ``losses.total_loss``, backward and the Adam update of
-the full-width random-init RFNet on synthetic clouds). ``--backend`` sets the
+``rfnet_tpu_torch.eval`` (full-width RFNet forward + CD/fidelity metrics on
+synthetic clouds), in ``train`` mode ``rfnet_tpu_torch.train``'s train step
+(forward, ``losses.total_loss``, backward and the Adam update of the
+full-width RFNet on synthetic clouds). The model is the seeded random init,
+or the weights of ``--checkpoint`` (``eval.load_state``: an ``.npz`` of flax
+params such as the converged ``weights/rfnet_r4_105000.npz``, or a ``.pt``
+state_dict); the clouds are the first of the held-out synthetic set
+``synthetic_pairs(64, seed=1234)``. ``--backend`` sets the
 losses' and metrics' sorted-space scan for the run (the module constant
 ``rfnet_tpu_torch.ops.chamfer._NN_SORTED_BACKEND``): ``dyn`` = z sort + K3,
 the default, ``tile`` = Morton sort + K8, so the two backends' device time
@@ -66,6 +71,8 @@ def main(argv=None) -> int:
     p.add_argument("--batch", type=int, default=4)
     p.add_argument("--iters", type=int, default=5)
     p.add_argument("--backend", choices=("dyn", "tile"), default="dyn")
+    p.add_argument("--checkpoint", default=None,
+                   help="weights (.npz of flax params or .pt); default the seeded random init")
     args = p.parse_args(argv)
 
     import numpy as np
@@ -76,7 +83,7 @@ def main(argv=None) -> int:
         print("profile_torch_serving: no CUDA device available", file=sys.stderr)
         return 1
     from rfnet_tpu_torch.data.dataset import synthetic_pairs
-    from rfnet_tpu_torch.eval import make_complete_fn
+    from rfnet_tpu_torch.eval import load_state, make_complete_fn
     from rfnet_tpu_torch.models import RFNet
     from rfnet_tpu_torch.ops import chamfer
 
@@ -88,17 +95,21 @@ def main(argv=None) -> int:
     pairs = list(synthetic_pairs(args.batch, seed=1234))
     partial = torch.from_numpy(np.stack([q for _, q, _ in pairs])).to(dev)
     gt = torch.from_numpy(np.stack([g for _, _, g in pairs])).to(dev)
+    loaded = load_state(args.checkpoint) if args.checkpoint else None
     if args.mode == "train":
         from rfnet_tpu_torch import train
 
         config = train.TrainConfig(batch_size=args.batch)
         state = train.create_state(config, dev)
+        if loaded is not None:
+            state.model.load_state_dict(loaded.state_dict())
         n1 = 2 * config.n_seed
 
         def step():
             return train.train_step(state, partial, gt, n1=n1, n2=n1 * config.up_ratio)
     else:
-        model = RFNet(generator=torch.Generator().manual_seed(0)).to(dev).eval()
+        model = loaded or RFNet(generator=torch.Generator().manual_seed(0))
+        model = model.to(dev).eval()
         complete, metrics = make_complete_fn(model)
 
         def step():
