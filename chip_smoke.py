@@ -34,6 +34,13 @@
    difference from the TPU eval (``run_r4/results_synth``) and the mean cd;
    then serves the first 4 clouds again on the CPU with the plain versions
    and holds the card's CSV to it;
+3c. serves the 16 clouds again with ``--pipeline`` (3 batches in flight):
+   the CSV identical to the synchronous one row for row, both "Average
+   time" values printed;
+3d. serves them with ``--bf16`` (bfloat16 feature MLPs): the mean cd
+   within 0.5 % of the JAX CPU eval with ``--bf16``
+   (``weights/rfnet_r4_105000.jax_cpu_bf16.csv``), the largest row
+   deviation printed;
 3b. on the converged model's outputs for those clouds (batch 4) and for
    the held-out set's first 32 (the losses' pair, batch 32): K3 and K8 on
    the metrics' three scans and on the pair both ways, K7 at the op API's
@@ -51,6 +58,17 @@
    at batch 32: 2 steps, one eval of the 64 pairs and one checkpoint; checks
    the losses, the files and the launch counts, and holds the first batch
    and loss to a step on the synthetic dataflow over the same pairs;
+4c. holds K1 at the pyramid precompute's shapes (64,16384,3)->64 and
+   ->1024 to its plain version, then trains at batch 32 with
+   ``preload_device`` on a 256-pair synthetic set: the precomputed
+   pyramids equal an on-step FPS of every row and the first step's loss
+   terms the host path's first step on the same batch, bit for bit;
+4d. trains 3 steps with ``--synthetic_online`` through the CLI at batch
+   32, with a checkpoint and an eval, then resumes: the resumed step's
+   batch equals a straight-through stream's bit for bit; first of all
+   phases (before any other profiling), one online step under
+   ``torch.profiler`` copies nothing over 64 KB from the host (a host-fed
+   step's trace, the control, shows its batch's copies);
 5. runs one full-width train step at batch 2 on the card and on the CPU
    from the same weights and batch and holds the two to each other;
 6. times the full-width forward at batch 32;
@@ -62,9 +80,13 @@
    holds one full-width train step at batch 32 and one eval batch of 4 (CD
    and fidelity) to the "dyn" backend from the same weights and batch, with
    exact launch counts, timing both;
-9. prints whether the native .pcd codec was built and how often it read,
-   the per-kernel JSON line (with the converged b32 step's times), then
-   ``{"ok": true, "device": ...}``.
+9. diagnostics: ``--debug_nans`` stops a b2 step with a NaN weight with
+   ``FloatingPointError``; ``--profile_dir`` writes non-empty traces of a
+   short eval and a short train run that name K3's and K2's kernels;
+10. prints whether the native .pcd codec was built and how often it read,
+   the per-kernel JSON line (with the converged b32 step's times; each
+   kernel's launches on every path, the preload, online, pipeline and bf16
+   ones among them), then ``{"ok": true, "device": ...}``.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 It needs the rest of the repository: alone, or without a card, it fails.
@@ -74,6 +96,7 @@ from __future__ import annotations
 
 import contextlib
 import csv
+import dataclasses
 import io
 import json
 import math
@@ -630,8 +653,6 @@ def read_jsonl(path: str) -> list[dict]:
 def train_run(dev):
     """Phase 4: the trainer end to end at full width, batch 32; returns the
     launch counts of its first run."""
-    import dataclasses
-
     import torch
 
     from rfnet_tpu_torch import kernels, train
@@ -794,6 +815,8 @@ WEIGHTS = os.path.join(HERE, "weights", "rfnet_r4_105000.npz")
 # (tools/export_torch_weights.py), and the same eval of 64 clouds on a TPU
 # whose MLPs truncate their inputs to bf16 (information only)
 JAX_CPU_CSV = os.path.join(HERE, "weights", "rfnet_r4_105000.jax_cpu.csv")
+# the same eval with --bf16 (bfloat16 feature MLPs)
+JAX_CPU_BF16_CSV = os.path.join(HERE, "weights", "rfnet_r4_105000.jax_cpu_bf16.csv")
 TPU_CSV = os.path.join(HERE, "run_r4", "results_synth", "results.csv")
 NUM_SERVE = 16
 
@@ -811,6 +834,12 @@ def read_rows(path: str) -> list[list[str]]:
 def max_rel(rows: list[list[str]], ref: list[list[str]]) -> float:
     return max(abs(float(a) - float(b)) / abs(float(b))
                for r, f in zip(rows, ref, strict=True) for a, b in zip(r[1:], f[1:]))
+
+
+def average_time(text: str) -> float:
+    avg = re.search(r"Average time: ([0-9.eE+-]+)", text)
+    check(avg is not None, "no 'Average time' line")
+    return float(avg.group(1))
 
 
 def serve(dev):
@@ -858,10 +887,9 @@ def serve(dev):
     check(native.get_lib() is not None, "the native .pcd codec did not build")
     check(native_reads == 2 * NUM_SERVE, f"the native codec read {native_reads} of the "
           f"{2 * NUM_SERVE} .pcd files")
-    avg = re.search(r"Average time: ([0-9.eE+-]+)", text)
-    check(avg is not None, "no 'Average time' line")
+    avg = average_time(text)
     print(f"serving the converged weights (step 105000): Average time "
-          f"{float(avg.group(1)):.6f} s/cloud (batch {B}, models 12-15), max_memory_allocated "
+          f"{avg:.6f} s/cloud (batch {B}, models 12-15), max_memory_allocated "
           f"{peak} bytes")
 
     gpu_rows = read_rows(os.path.join(WORK, "gpu"))
@@ -893,7 +921,7 @@ def serve(dev):
             check(rel <= 1e-3, f"{g[0]}: card {gv} vs cpu {cv} (rel {rel:.3g})")
     print(f"serving: {NUM_SERVE} finite CSV rows; first 4 match the CPU reference within 1e-3 "
           f"relative; the native .pcd codec read all {native_reads} files")
-    return counts
+    return counts, avg
 
 
 def converged_model(dev):
@@ -1458,6 +1486,264 @@ def tile_backend(dev) -> dict:
     return {k: sc_t[k] + ec_t[k] for k in sc_t}
 
 
+def serve_variants(dev, sync_avg: float) -> tuple[dict, dict]:
+    """Phases 3c and 3d: the 16 clouds of phase 3 served again with the
+    converged weights, with ``--pipeline`` (the CSV identical to the
+    synchronous one, row for row) and with ``--bf16`` (the mean cd within
+    0.5 % of the JAX CPU eval with ``--bf16``); returns the two runs'
+    launch counts."""
+    from rfnet_tpu_torch import kernels
+
+    common = ["--list_path", os.path.join(WORK, "test.list"), "--data_dir",
+              os.path.join(WORK, "data"), "--checkpoint", WEIGHTS, "--num_gt_points", "16384",
+              "--plot_freq", "1000", "--batch_size", str(B), "--device", "cuda"]
+    want = {k: NUM_SERVE // B * v for k, v in SERVE_LAUNCHES.items()}
+    sync_rows = read_rows(os.path.join(WORK, "gpu"))
+    counts = {}
+    for tag in ("pipeline", "bf16"):
+        kernels.reset_launch_counts()
+        text = run_eval([*common, "--results_dir", os.path.join(WORK, tag), f"--{tag}"])
+        counts[tag] = dict(kernels.launches)
+        check(counts[tag] == want, f"--{tag} launch counts {counts[tag]} (expected {want})")
+        if tag == "pipeline":
+            check(read_rows(os.path.join(WORK, tag)) == sync_rows,
+                  "the pipelined CSV differs from the synchronous one")
+            print(f"pipeline: CSV identical to the synchronous path's, row for row; Average "
+                  f"time {average_time(text):.6f} s/cloud (amortized wall between read-backs, "
+                  f"models 12-15) against {sync_avg:.6f} synchronous (forward to "
+                  f"synchronize()); launches {counts[tag]}")
+    rows = read_rows(os.path.join(WORK, "bf16"))
+    ref = read_rows(JAX_CPU_BF16_CSV)
+    check([r[0] for r in rows] == [r[0] for r in ref] == [r[0] for r in sync_rows],
+          "the bf16 CSVs' ids differ")
+    mean = lambda rs: sum(float(r[1]) for r in rs) / len(rs)  # noqa: E731
+    rel = abs(mean(rows) - mean(ref)) / mean(ref)
+    check(rel <= 5e-3, f"--bf16 mean cd {mean(rows)} vs the JAX CPU bf16 eval's {mean(ref)} "
+          f"({rel:.3g} relative, limit 5e-3)")
+    check(all(math.isfinite(float(v)) for r in rows for v in r[1:]), "non-finite bf16 metric")
+    print(f"bf16: mean cd {mean(rows):.6f} against the JAX CPU bf16 eval's {mean(ref):.6f} "
+          f"({rel:.3g} relative, limit 5e-3) and the card's float32 {mean(sync_rows):.6f}; "
+          f"largest row deviation from the JAX CPU bf16 CSV {max_rel(rows, ref):.3g} relative, "
+          f"from the float32 CSV {max_rel(rows, sync_rows):.3g}; launches {counts['bf16']}")
+    return counts["pipeline"], counts["bf16"]
+
+
+PRELOAD_SET = 256  # pairs in the preloaded training set
+
+
+def preload_run(dev, rows: dict) -> dict:
+    """Phase 4c: K1 at the pyramid precompute's shapes (64,16384)->64 and
+    ->1024 held to its plain version; a b32 trainer with ``preload_device``
+    on a 256-pair synthetic set: its pyramids equal an on-step FPS of each
+    row bit for bit, and its first step's loss terms the host path's first
+    step on the same batch. Returns the launch counts of the preload run."""
+    import torch
+
+    from rfnet_tpu_torch import kernels, train
+    from rfnet_tpu_torch.data.dataset import synthetic_dataflow
+    from rfnet_tpu_torch.ops import fps
+
+    t0 = time.time()
+    df, _ = synthetic_dataflow(PRELOAD_SET, 32, 3000, 16384)
+    vdf, vn = synthetic_dataflow(4, 4, 3000, 16384, is_training=False, seed=1234)
+    config = train.TrainConfig(iters=2, batch_size=32, log_every=1, ckpt_every=100,
+                               workdir=os.path.join(WORK, "preload", "model"))
+    partials, gts, _ = train.preload_device_data(df, config, dev)
+    print(f"preload: {PRELOAD_SET} pairs made and uploaded in {time.time() - t0:.2f} s, "
+          f"{partials.nbytes + gts.nbytes} bytes on the card")
+    for npoint, iters in ((64, 20), (1024, 5)):
+        record(rows, "fps", f"(64,16384,3)->{npoint} preload", check_k1(gts[:64], npoint, iters))
+    g1s, g2s = train._precompute_pyramids(gts, 64, 1024)
+    for lo in range(0, PRELOAD_SET, 32):
+        g = gts[lo:lo + 32]
+        check(torch.equal(g1s[lo:lo + 32], fps.gather_point(g, fps.farthest_point_sample(64, g)))
+              and torch.equal(g2s[lo:lo + 32],
+                              fps.gather_point(g, fps.farthest_point_sample(1024, g))),
+              f"preload pyramids of rows {lo}-{lo + 31} differ from the on-step FPS")
+    del partials, gts, g1s, g2s
+
+    kernels.reset_launch_counts()
+    train.train(config, df, vdf, vn, device=dev, preload_device=True)
+    torch.cuda.synchronize(dev)
+    counts = dict(kernels.launches)
+    chunks = -(-PRELOAD_SET // 64)
+    want = {k: 2 * v for k, v in STEP_LAUNCHES.items()}
+    want["fps"] = 2 * 1 + 2 * chunks  # the model's seeds a step; two pyramids a chunk, once
+    check(counts == want, f"preload launch counts {counts} (expected {want})")
+    host = dataclasses.replace(config, iters=1, workdir=os.path.join(WORK, "host", "model"))
+    train.train(host, df, vdf, vn, device=dev)
+    first = read_jsonl(os.path.join(WORK, "preload", "logs", "metrics.jsonl"))
+    ref = read_jsonl(os.path.join(WORK, "host", "logs", "metrics.jsonl"))
+    check([x["step"] for x in first] == [0, 1] and all(
+        math.isfinite(v) for x in first for v in x.values()), f"preload metrics {first}")
+    check(first[0] == ref[0], f"preload first step {first[0]} differs from the host path's "
+          f"{ref[0]}")
+    print(f"preload: pyramids of all {PRELOAD_SET} rows bit-equal to the on-step FPS; first "
+          f"step's loss terms bit-equal to the host path's (total {first[0]['total']:.6f}), "
+          f"second {first[1]['total']:.6f}; launches {counts} (K1: {chunks} chunks x 2 "
+          f"pyramids once, then the model's seeds a step)")
+    return counts
+
+
+def h2d_copies(trace_path: str) -> list[int]:
+    """Bytes of each host-to-device copy on the card in a Chrome trace of
+    ``torch.profiler``."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    copies = [e for e in events if "memcpy" in e.get("cat", "").lower()
+              and "htod" in e.get("name", "").lower()]
+    check(all("bytes" in e.get("args", {}) for e in copies),
+          f"a host-to-device copy without its size in the trace: {copies[:2]}")
+    return [int(e["args"]["bytes"]) for e in copies]
+
+
+def online_copy_check(dev) -> None:
+    """Phase 4e, run before any other profiling in this process: one online
+    train step at batch 32 under ``torch.profiler`` copies nothing over 64
+    KB from the host; as the control, the trace of a step fed from the host
+    shows its batch's copies."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from rfnet_tpu_torch import train
+    from rfnet_tpu_torch.data import online
+
+    config = train.TrainConfig(batch_size=32)
+    state = train.create_state(config, dev)
+    hp, hg = train_batch(32, seed=51)
+
+    def online_step():
+        p, g = online.synthetic_batch(config.seed, state.step, 32, 3000, 16384, dev)
+        train.train_step(state, p, g, n1=64, n2=1024)
+
+    def host_step():
+        train.train_step(state, hp.to(dev), hg.to(dev), n1=64, n2=1024)
+
+    copies = {}
+    for name, step in (("online", online_step), ("host", host_step)):
+        step()
+        torch.cuda.synchronize(dev)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            step()
+            torch.cuda.synchronize(dev)
+        trace = os.path.join(WORK, f"{name}_step.json")
+        prof.export_chrome_trace(trace)
+        copies[name] = h2d_copies(trace)
+    check(sum(copies["host"]) >= hp.nbytes + hg.nbytes, f"the control: the host-fed step's "
+          f"trace shows host-to-device copies {copies['host']}, less than its "
+          f"{hp.nbytes + hg.nbytes}-byte batch")
+    largest = max(copies["online"], default=0)
+    check(largest <= 65536, f"an online step copied {largest} bytes from the host")
+    gen_ms = cuda_ms(lambda: online.synthetic_batch(1, 0, 32, 3000, 16384, dev), 10)
+    gen_dev = device_ms(lambda: online.synthetic_batch(1, 0, 32, 3000, 16384, dev), 10, "")
+    print(f"online step b32 under the profiler: host-to-device copies "
+          f"{len(copies['online'])}, the largest {largest} bytes (limit 65536; the host-fed "
+          f"control step's: {sorted(copies['host'])}); generating a b32 batch takes "
+          f"{gen_ms:.4f} ms ({fmt_ms(gen_dev)} on the card)")
+
+
+def online_run(dev) -> dict:
+    """Phase 4d: ``--synthetic_online`` through the CLI at batch 32: 3 steps,
+    a checkpoint and an eval, then a resume that takes step 3 on the batch
+    a straight-through stream gives at step 3, bit for bit. Returns the
+    launch counts of the first run."""
+    import torch
+
+    from rfnet_tpu_torch import kernels, train
+    from rfnet_tpu_torch.data import online
+
+    workdir = os.path.join(WORK, "online", "model")
+    seen = []
+    make = online.synthetic_batch
+
+    def recording(seed, step, *args):
+        batch = make(seed, step, *args)
+        seen.append((seed, step, batch))
+        return batch
+
+    argv = ["--synthetic_online", "--synthetic_val_size", "4", "--batch_size", "32",
+            "--ckpt_every", "3", "--workdir", workdir, "--device", "cuda"]
+    online.synthetic_batch = recording
+    buf = io.StringIO()
+    try:
+        kernels.reset_launch_counts()
+        with contextlib.redirect_stdout(buf):
+            train.main([*argv, "--steps", "3"])
+        torch.cuda.synchronize(dev)
+        counts = dict(kernels.launches)
+        check([(s, t) for s, t, _ in seen] == [(1, 0), (1, 1), (1, 2)], "online steps")
+        seen.clear()
+        with contextlib.redirect_stdout(buf):
+            train.main([*argv, "--steps", "4"])
+    finally:
+        online.synthetic_batch = make
+    text = buf.getvalue()
+    print(text, end="")
+    check(counts == expected_launches(3, 1), f"online launch counts {counts}")
+    check("eval @ 3:" in text and "restored checkpoint at step 3" in text, "online run")
+    check([(s, t) for s, t, _ in seen] == [(1, 3)], f"resumed steps {[t for _, t, _ in seen]}")
+    stream = online.batch_stream(1, 0, 32, 3000, 16384, dev)
+    straight = [next(stream) for _ in range(4)][3]
+    check(all(torch.equal(a, b) for a, b in zip(seen[0][2], straight)),
+          "the resumed run's batch at step 3 differs from the straight-through stream's")
+
+    print(f"online: 3 steps, checkpoint and eval, resumed at step 3 on the straight-through "
+          f"stream's batch, bit for bit; launches {counts}")
+    return counts
+
+
+def diagnostics(dev) -> None:
+    """Phase 9: ``--debug_nans`` stops a b2 step with a NaN weight with
+    ``FloatingPointError``; ``--profile_dir`` writes a trace of a short
+    eval and of a short train run, the latter naming K3's and K2's
+    kernels."""
+    import torch
+
+    from rfnet_tpu_torch import train
+
+    workdir = os.path.join(WORK, "nan", "model")
+    state = train.create_state(train.TrainConfig(batch_size=2), dev)
+    with torch.no_grad():
+        state.model.cell.state_mlp.l0.weight[0, 0] = float("nan")
+    train.save_checkpoint(state, workdir, 1)
+    small = ["--synthetic", "--synthetic_size", "4", "--batch_size", "2", "--steps", "1",
+             "--device", "cuda"]
+    raised = None
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            train.main([*small, "--workdir", workdir, "--debug_nans"])
+    except FloatingPointError as exc:
+        raised = str(exc)
+    check(raised is not None and "step 0" in raised,
+          "--debug_nans did not stop the step with a NaN weight")
+    print(f"debug_nans: FloatingPointError at the NaN weight's first step: {raised}")
+
+    traces = {}
+    for tag in ("eval", "train"):
+        prof = os.path.join(WORK, "prof_" + tag)
+        with contextlib.redirect_stdout(io.StringIO()):
+            if tag == "eval":
+                run_eval(["--list_path", os.path.join(WORK, "ref.list"), "--data_dir",
+                          os.path.join(WORK, "data"), "--checkpoint", WEIGHTS,
+                          "--results_dir", os.path.join(WORK, "prof_results"), "--batch_size",
+                          str(B), "--plot_freq", "1000", "--device", "cuda",
+                          "--profile_dir", prof])
+            else:
+                train.main([*small, "--workdir", os.path.join(WORK, "prof_run", "model"),
+                            "--profile_dir", prof])
+        path = os.path.join(prof, "trace.json")
+        check(os.path.getsize(path) > 0, f"--profile_dir wrote an empty {tag} trace")
+        with open(path) as f:
+            names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+        for kernel in ("nn_dyn_kernel", "nn_scan_kernel<true"):
+            check(any(kernel in n for n in names), f"the {tag} trace does not name {kernel}")
+        traces[tag] = (os.path.getsize(path), len(h2d_copies(path)))
+    print(f"profile_dir: eval trace {traces['eval'][0]} bytes, train trace "
+          f"{traces['train'][0]} bytes, both naming K3 (nn_dyn_kernel) and K2 "
+          f"(nn_scan_kernel<true>); host-to-device copies in them {traces['eval'][1]}, "
+          f"{traces['train'][1]}")
+
+
 def main() -> int:
     import torch
 
@@ -1485,17 +1771,22 @@ def main() -> int:
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
     try:
+        online_copy_check(dev)
         rows = check_kernels(dev)
         check_train_kernels(dev, rows)
         check_tiled_kernels(dev, rows)
-        serve_counts = serve(dev)
+        serve_counts, sync_avg = serve(dev)
+        pipeline_counts, bf16_counts = serve_variants(dev, sync_avg)
         converged_kernels(dev, rows)
         train_counts = train_run(dev)
         lmdb_counts = lmdb_train_run(dev)
+        preload_counts = preload_run(dev, rows)
+        online_counts = online_run(dev)
         cross_check_step(dev)
         forward_throughput(dev)
         ops_counts = op_api(dev)
         tile_counts = tile_backend(dev)
+        diagnostics(dev)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 
@@ -1508,7 +1799,8 @@ def main() -> int:
            "nn_pruned": ("nn_pruned.cu", "rfnet_tpu/ops/pallas/chamfer_pruned.py:128", "ops"),
            "nn_tile": ("nn_tile.cu", "rfnet_tpu/ops/pallas/chamfer_tile.py:214", "tile")}
     by_path = {"serve": serve_counts, "train": train_counts, "lmdb": lmdb_counts,
-               "ops": ops_counts, "tile": tile_counts}
+               "ops": ops_counts, "tile": tile_counts, "preload": preload_counts,
+               "online": online_counts, "pipeline": pipeline_counts, "bf16": bf16_counts}
     for name, (_, _, path) in src.items():
         check(by_path[path][name] > 0, f"{name} was not launched on the {path} path")
     line = {"kernels": [

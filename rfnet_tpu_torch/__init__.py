@@ -8,7 +8,9 @@ with ``nvcc`` at first use (``kernels.py``). Each kernel's wrapper runs the
 kernel for CUDA tensors and its plain PyTorch version for CPU tensors.
 
 fp32 means fp32 here: TF32 is switched off for matmuls and convolutions, so
-the card and the CPU reference compute the feature MLPs in full float32.
+the card and the CPU reference compute the feature MLPs in full float32. In
+the bfloat16 mode (``RFNet(dtype=torch.bfloat16)``) cuBLAS may not reduce in
+bfloat16: its matmuls accumulate in float32, as XLA's bfloat16 dots do.
 """
 
 import torch
@@ -17,3 +19,4 @@ __version__ = "0.1.0"
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False

@@ -28,6 +28,7 @@ from rfnet_tpu_torch.data import lmdb_pure, msgpack_lite
 
 _SEED = 1  # the JAX package's BatchedDataflow default
 _PREFETCH = 8
+PREFETCH_THREAD = "rfnet-prefetch"  # the name of every dataflow's prefetch thread
 
 
 def resample_pcd(pcd: np.ndarray, n: int, rng: np.random.RandomState | None = None):
@@ -191,7 +192,7 @@ class BatchedDataflow:
                 return
             put(None)
 
-        threading.Thread(target=worker, daemon=True).start()
+        threading.Thread(target=worker, daemon=True, name=PREFETCH_THREAD).start()
         try:
             while (item := q.get()) is not None:
                 if isinstance(item, BaseException):

@@ -1,6 +1,6 @@
 """Evaluation / serving CLI — the ``recon_test.py`` contract, on the card.
 
-Port of ``rfnet_tpu/eval.py`` (synchronous path, one device):
+Port of ``rfnet_tpu/eval.py`` on one device:
   * reads each ``<data_dir>/{partial,complete}/<id>.pcd`` of ``--list_path``,
     completes the partial cloud, and writes ``results.csv`` with header
     ``id,cd,emd`` where ``cd`` is the per-sample chamfer distance and the
@@ -8,7 +8,15 @@ Port of ``rfnet_tpu/eval.py`` (synchronous path, one device):
     distance), a reference quirk kept for comparability;
   * prints the parameter count first, then "Average time" (excluding the
     first 10 models as warmup) and the overall and per-category means;
-  * optional three-view plots every ``--plot_freq`` models and .pcd dumps.
+  * optional three-view plots every ``--plot_freq`` models and .pcd dumps;
+  * ``--pipeline`` keeps ``DEPTH`` batches in flight: batch i+1 is
+    dispatched while batch i is read back (pinned host buffers and
+    ``non_blocking`` copies on the default stream), and "Average time"
+    becomes the amortized wall time per cloud; without it each batch is
+    timed to ``synchronize()``, the reference's convention;
+  * ``--bf16`` computes the feature MLPs in bfloat16 (parameters and
+    coordinates stay float32), the JAX CLI's serving mode;
+  * ``--profile_dir`` writes a ``torch.profiler`` Chrome trace of the run.
 
 Weights (``--checkpoint``) come from a ``torch.save``d ``state_dict``
 (``.pt``) or from an ``.npz`` of flat flax params (``{"a/b/leaf": array}``,
@@ -21,18 +29,21 @@ card is an error.
 
     python -m rfnet_tpu_torch.eval --list_path test.list --data_dir test \\
         --checkpoint weights/rfnet_r4_105000.npz --results_dir results/recon \\
-        --batch_size 4
+        --batch_size 4 [--pipeline] [--bf16] [--profile_dir trace/]
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import csv
 import importlib.util
 import os
 import queue
+import sys
 import threading
 import time
+from collections import deque
 
 import numpy as np
 import torch
@@ -46,21 +57,24 @@ from rfnet_tpu_torch.ops.chamfer import chamfer_sample_means, nn_sample_mean_one
 
 INPUT_POINTS = 3000
 RANDOM_INIT_SEED = 1  # the JAX TrainConfig's default seed
+DEPTH = 3  # batches in flight under --pipeline
+# flags of the JAX package's CLI that the port does not have yet (ROADMAP.md §1)
+_NOT_PORTED = ("--mesh",)
 
 
 def count_params(model: torch.nn.Module) -> int:
     return sum(p.numel() for p in model.parameters())
 
 
-def _model_for(state_dict: dict) -> RFNet:
+def _model_for(state_dict: dict, dtype: torch.dtype | None = None) -> RFNet:
     """An RFNet whose sizes match ``state_dict`` (seed count and up ratio
-    read off the ``points_out`` layers)."""
+    read off the ``points_out`` layers), computing in ``dtype``."""
     n_seed = (state_dict["init_cell.points_out.weight"].shape[0] - 12) // 3
     up_ratio = state_dict["decode_cell.points_out.weight"].shape[0] // 3
-    return RFNet(n_seed=n_seed, up_ratio=up_ratio)
+    return RFNet(n_seed=n_seed, up_ratio=up_ratio, dtype=dtype)
 
 
-def _load_npz(checkpoint: str) -> RFNet:
+def _load_npz(checkpoint: str, dtype: torch.dtype | None = None) -> RFNet:
     """The model of an ``.npz`` of flat flax params, its size read off the
     kernels: legacy shared step biases upgraded (``ckpt_compat``), renamed
     (``flax_to_state_dict``) and loaded strictly. Prints the training step
@@ -69,7 +83,7 @@ def _load_npz(checkpoint: str) -> RFNet:
         flat = {k: z[k] for k in z.files if not k.startswith("__")}
         step = int(z["__step__"]) if "__step__" in z.files else None
     print(f"checkpoint {checkpoint}: step {step}")
-    model = _model_for(flax_to_state_dict(flat))
+    model = _model_for(flax_to_state_dict(flat), dtype)
     flat, upgraded = ckpt_compat.upgrade(flat, ckpt_compat.expected_shapes(model.state_dict()))
     if upgraded:
         print("checkpoint upgraded from legacy shared-bias layout")
@@ -77,19 +91,20 @@ def _load_npz(checkpoint: str) -> RFNet:
     return model
 
 
-def load_state(checkpoint: str) -> RFNet:
+def load_state(checkpoint: str, dtype: torch.dtype | None = None) -> RFNet:
     """The model with weights from ``checkpoint``: a saved state_dict
-    (``.pt``) or an ``.npz`` of flat flax params.
+    (``.pt``) or an ``.npz`` of flat flax params; its feature MLPs compute
+    in ``dtype`` (None = float32).
 
     When the file is absent, warns and returns the full-size model's random
     init, drawn from a generator seeded ``RANDOM_INIT_SEED``."""
     if not os.path.isfile(checkpoint):
         print(f"WARNING: no checkpoint at {checkpoint}; evaluating random init")
-        return RFNet(generator=torch.Generator().manual_seed(RANDOM_INIT_SEED))
+        return RFNet(generator=torch.Generator().manual_seed(RANDOM_INIT_SEED), dtype=dtype)
     if checkpoint.endswith(".npz"):
-        return _load_npz(checkpoint)
+        return _load_npz(checkpoint, dtype)
     state_dict = torch.load(checkpoint, map_location="cpu", weights_only=True)
-    model = _model_for(state_dict)
+    model = _model_for(state_dict, dtype)
     model.load_state_dict(state_dict, strict=True)
     return model
 
@@ -101,6 +116,42 @@ def resolve_device(name: str | torch.device) -> torch.device:
     if device.type not in ("cuda", "cpu"):
         raise SystemExit(f"--device {name}: only cuda and cpu are supported")
     return device
+
+
+def refuse_unported(parser: argparse.ArgumentParser, argv, flags) -> None:
+    """Stop with the parser's error for each of ``flags`` given in ``argv``
+    (``sys.argv[1:]`` when None): JAX CLI flags the port does not have yet."""
+    given = {a.split("=")[0] for a in (sys.argv[1:] if argv is None else argv)}
+    for flag in sorted(given.intersection(flags)):
+        parser.error(f"{flag} is not ported to the PyTorch package yet "
+                     "(ROADMAP.md, modules to port)")
+
+
+@contextlib.contextmanager
+def profile_trace(profile_dir: str | None, device: torch.device):
+    """``torch.profiler`` around the block, as ``jax.profiler`` wraps the
+    JAX CLIs' runs: host activity, and the card's kernels and copies where
+    ``device`` is CUDA. The Chrome trace is written to
+    ``<profile_dir>/trace.json`` however the block ends. Does nothing
+    without a directory."""
+    if not profile_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(profile_dir, exist_ok=True)
+    prof = profile(activities=activities)
+    prof.start()
+    try:
+        yield
+    finally:
+        prof.stop()
+        path = os.path.join(profile_dir, "trace.json")
+        prof.export_chrome_trace(path)
+        print(f"profiler trace written to {path}")
 
 
 def make_complete_fn(model: RFNet):
@@ -152,9 +203,49 @@ def _load_chunks(model_list, bsz, args, out_q, stop):
         put(exc)
 
 
+def _to_device(batch: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host batch on ``device``; for the card through a pinned buffer and
+    a ``non_blocking`` copy (PyTorch's pinned allocator keeps the buffer
+    until the copy is done)."""
+    t = torch.from_numpy(batch)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t
+
+
+def dispatch(complete, metrics, pnp: np.ndarray, gnp: np.ndarray, device: torch.device):
+    """Queue one batch's forward, metrics and read-back on ``device``
+    without waiting for any of them; :func:`collect` waits. Returns (host
+    copies of cds, emds and the completion, an event that completes with
+    them): on the card ``non_blocking`` copies into pinned buffers queued
+    behind the work; on the CPU the tensors themselves and no event."""
+    pb = _to_device(pnp, device)
+    completion = complete(pb)
+    out = (*metrics(pb, completion, _to_device(gnp, device)), completion)
+    if device.type != "cuda":
+        return list(out), None
+    host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in out]
+    for h, t in zip(host, out):
+        h.copy_(t, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    return host, done
+
+
+def collect(pending) -> list[np.ndarray]:
+    """Wait for a :func:`dispatch`'s read-back (reading the batch's metrics
+    back bounds its work, as the JAX CLI's ``np.asarray(cds)`` does) and
+    return (cds, emds, completion) as arrays."""
+    host, done = pending
+    if done is not None:
+        done.synchronize()
+    return [t.numpy() for t in host]
+
+
 def test(args):
     device = resolve_device(args.device)
-    model = load_state(args.checkpoint).to(device).eval()
+    dtype = torch.bfloat16 if args.bf16 else None
+    model = load_state(args.checkpoint, dtype).to(device).eval()
     print("trainable parameters:", count_params(model))
     complete, metrics = make_complete_fn(model)
     can_plot = importlib.util.find_spec("matplotlib") is not None
@@ -180,53 +271,89 @@ def test(args):
     )
     loader.start()
     csv_file = open(os.path.join(args.results_dir, "results.csv"), "w", newline="")
-    try:
-        writer = csv.writer(csv_file)
-        writer.writerow(["id", "cd", "emd"])
-        while (item := load_q.get()) is not None:
-            if isinstance(item, BaseException):
-                raise item
-            chunk_start, chunk, pnp, gnp = item
-            pb = torch.from_numpy(pnp).to(device)
-            gb = torch.from_numpy(gnp).to(device)
-            start = time.time()
-            completion = complete(pb)
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
-            elapsed = (time.time() - start) / bsz
-            cds, emds = metrics(pb, completion, gb)
-            cds, emds = cds.cpu().numpy(), emds.cpu().numpy()
-            completion = completion.cpu().numpy()
-            for j, model_id in enumerate(chunk):
-                i = chunk_start + j
-                if chunk_start >= 10:
-                    # warmup exclusion: exact at batch 1; at batch_size > 1 a
-                    # batch straddling index 10 is excluded entirely
-                    total_time += elapsed
-                    timed_models += 1
-                cd, emd = float(cds[j]), float(emds[j])
-                total_cd += cd
-                total_emd += emd
-                writer.writerow([model_id, cd, emd])
-                synset_id, short_id = model_id.split("/")
-                cd_per_cat.setdefault(synset_id, []).append(cd)
-                emd_per_cat.setdefault(synset_id, []).append(emd)
-                if i % args.plot_freq == 0 and can_plot:
-                    from rfnet_tpu_torch.visu import plot_pcd_three_views
+    writer = csv.writer(csv_file)
+    writer.writerow(["id", "cd", "emd"])
 
-                    plot_dir = os.path.join(args.results_dir, "plots", synset_id)
-                    os.makedirs(plot_dir, exist_ok=True)
-                    plot_pcd_three_views(
-                        os.path.join(plot_dir, f"{short_id}.png"),
-                        [pnp[j], completion[j], gnp[j]],
-                        ["input", "output", "ground truth"],
-                        f"CD {cd:.4f}  EMD {emd:.4f}",
-                        [5, 0.5, 0.5],
-                    )
-                if args.save_pcd:
-                    pcd_dir = os.path.join(args.results_dir, "pcds", synset_id)
-                    os.makedirs(pcd_dir, exist_ok=True)
-                    save_pcd(os.path.join(pcd_dir, f"{short_id}.pcd"), completion[j])
+    def get_item():
+        """Next loader item; re-raises a loader-thread failure here."""
+        item = load_q.get()
+        if isinstance(item, BaseException):
+            raise item
+        return item
+
+    def process_results(chunk_start, chunk, pnp, gnp, completion, cds, emds, elapsed):
+        nonlocal total_time, timed_models, total_cd, total_emd
+        for j, model_id in enumerate(chunk):
+            i = chunk_start + j
+            if chunk_start >= 10:
+                # warmup exclusion: exact at batch 1; at batch_size > 1 a
+                # batch straddling index 10 is excluded entirely
+                total_time += elapsed
+                timed_models += 1
+            cd, emd = float(cds[j]), float(emds[j])
+            total_cd += cd
+            total_emd += emd
+            writer.writerow([model_id, cd, emd])
+            synset_id, short_id = model_id.split("/")
+            cd_per_cat.setdefault(synset_id, []).append(cd)
+            emd_per_cat.setdefault(synset_id, []).append(emd)
+            if i % args.plot_freq == 0 and can_plot:
+                from rfnet_tpu_torch.visu import plot_pcd_three_views
+
+                plot_dir = os.path.join(args.results_dir, "plots", synset_id)
+                os.makedirs(plot_dir, exist_ok=True)
+                plot_pcd_three_views(
+                    os.path.join(plot_dir, f"{short_id}.png"),
+                    [pnp[j], completion[j], gnp[j]],
+                    ["input", "output", "ground truth"],
+                    f"CD {cd:.4f}  EMD {emd:.4f}",
+                    [5, 0.5, 0.5],
+                )
+            if args.save_pcd:
+                pcd_dir = os.path.join(args.results_dir, "pcds", synset_id)
+                os.makedirs(pcd_dir, exist_ok=True)
+                save_pcd(os.path.join(pcd_dir, f"{short_id}.pcd"), completion[j])
+
+    try:
+        if not args.pipeline:
+            # the reference's convention: each batch's forward timed to
+            # synchronize(); only the disk reads overlap
+            while (item := get_item()) is not None:
+                chunk_start, chunk, pnp, gnp = item
+                pb = torch.from_numpy(pnp).to(device)
+                gb = torch.from_numpy(gnp).to(device)
+                start = time.time()
+                completion = complete(pb)
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
+                elapsed = (time.time() - start) / bsz
+                cds, emds = metrics(pb, completion, gb)
+                process_results(chunk_start, chunk, pnp, gnp, completion.cpu().numpy(),
+                                cds.cpu().numpy(), emds.cpu().numpy(), elapsed)
+        else:
+            # DEPTH batches in flight: the next batches are dispatched before
+            # the oldest is read back; "Average time" is the amortized wall
+            # time per cloud between read-backs
+            pending: deque = deque()
+            t_prev = time.time()
+            done_loading = False
+            while not done_loading or pending:
+                while not done_loading and len(pending) < DEPTH:
+                    item = get_item()
+                    if item is None:
+                        done_loading = True
+                        break
+                    chunk_start, chunk, pnp, gnp = item
+                    pending.append((chunk_start, chunk, pnp, gnp,
+                                    dispatch(complete, metrics, pnp, gnp, device)))
+                if pending:
+                    chunk_start, chunk, pnp, gnp, batch = pending.popleft()
+                    cds, emds, completion = collect(batch)
+                    now = time.time()
+                    elapsed = (now - t_prev) / bsz
+                    t_prev = now
+                    process_results(chunk_start, chunk, pnp, gnp, completion, cds, emds,
+                                    elapsed)
     finally:
         stop.set()
         csv_file.close()
@@ -255,8 +382,25 @@ def main(argv=None):
         "--batch_size", type=int, default=1,
         help="models per device batch (1 = reference behaviour)",
     )
+    parser.add_argument(
+        "--pipeline", action="store_true",
+        help=f"keep {DEPTH} batches in flight on the card (the next dispatched while the "
+        "oldest is read back); 'Average time' becomes the amortized wall time per cloud",
+    )
+    parser.add_argument(
+        "--bf16", action="store_true",
+        help="bfloat16 feature MLPs (parameters and coordinates stay float32)",
+    )
+    parser.add_argument(
+        "--profile_dir", default=None,
+        help="write a torch.profiler Chrome trace of the run (host activity, and the "
+        "card's kernels and copies) to <dir>/trace.json",
+    )
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    test(parser.parse_args(argv))
+    refuse_unported(parser, argv, _NOT_PORTED)
+    args = parser.parse_args(argv)
+    with profile_trace(args.profile_dir, resolve_device(args.device)):
+        test(args)
 
 
 if __name__ == "__main__":

@@ -16,6 +16,14 @@ sharing is the reference's:
 All tensors are channels-last ``(b, npts, c)``. FPS runs through kernel K1
 and each merge's nearest-neighbour scan through kernel K2 when the input is
 on the card.
+
+``RFNet(dtype=torch.bfloat16)`` computes the feature MLPs in bfloat16, as
+the JAX ``RFNet(dtype=jnp.bfloat16)`` does, with the same dtype flow: a
+layer's output stays in its dtype, a ``torch.cat`` or an add with float32
+coordinates promotes to float32 as ``jnp.concatenate`` and ``+`` do (so every
+coordinate that reaches a kernel is float32), and ``InitDecodeLayer``'s
+generated seeds stay bfloat16 through the tanh, the ``transmat`` product and
+``movemat``, until their concatenation with the moved seeds.
 """
 
 from __future__ import annotations
@@ -40,9 +48,9 @@ def _bcast(x: torch.Tensor, n: int) -> torch.Tensor:
 class GlobalMLP(nn.Module):
     """Per-point MLP + max-pool codeword (``global_mlp``)."""
 
-    def __init__(self, in_ch: int, features: tuple, g: torch.Generator):
+    def __init__(self, in_ch: int, features: tuple, g: torch.Generator, dtype=None):
         super().__init__()
-        self.mlp = PointMLP(in_ch, features, generator=g)
+        self.mlp = PointMLP(in_ch, features, generator=g, dtype=dtype)
 
     def forward(self, pts):
         return torch.amax(self.mlp(pts), dim=1, keepdim=True)  # (b, 1, c)
@@ -52,11 +60,12 @@ class EncodeCell(nn.Module):
     """The shared RNN cell: (points, state (b,1,S)) -> (code, new_state)."""
 
     def __init__(self, in_ch: int, state_len: int, n_steps: int, g: torch.Generator,
-                 mlp=(256, 384), mlpout=(256, 256)):
+                 mlp=(256, 384), mlpout=(256, 256), dtype=None):
         super().__init__()
-        self.state_mlp = PointMLP(in_ch + state_len, mlp, n_steps=n_steps, generator=g)
-        self.state_end = StepDense(mlp[-1], state_len, n_steps, g)
-        self.code_mlp = PointMLP(state_len, mlpout, n_steps=n_steps, generator=g)
+        self.state_mlp = PointMLP(in_ch + state_len, mlp, n_steps=n_steps, generator=g,
+                                  dtype=dtype)
+        self.state_end = StepDense(mlp[-1], state_len, n_steps, g, dtype)
+        self.code_mlp = PointMLP(state_len, mlpout, n_steps=n_steps, generator=g, dtype=dtype)
 
     def forward(self, pts, state, step: int):
         x = torch.cat([pts, _bcast(state, pts.shape[1])], -1)
@@ -68,10 +77,10 @@ class EncodeCell(nn.Module):
 class RecoverCell(nn.Module):
     """Re-attends the codeword to the point set; linear final projection."""
 
-    def __init__(self, code_ch: int, g: torch.Generator, mlp2=(256, 256)):
+    def __init__(self, code_ch: int, g: torch.Generator, mlp2=(256, 256), dtype=None):
         super().__init__()
-        self.mlp = PointMLP(code_ch + 3, mlp2, generator=g)
-        self.out = Dense(mlp2[-1], mlp2[-1], g)
+        self.mlp = PointMLP(code_ch + 3, mlp2, generator=g, dtype=dtype)
+        self.out = Dense(mlp2[-1], mlp2[-1], g, dtype)
 
     def forward(self, code, pts):
         x = self.mlp(torch.cat([_bcast(code, pts.shape[1]), pts], -1))
@@ -82,14 +91,14 @@ class InitMoveLayer(nn.Module):
     """Moves FPS seeds by tanh-bounded offsets and emits their state."""
 
     def __init__(self, code_ch: int, g: torch.Generator, mlp=(256, 256, 256),
-                 mlp1=(256, 128), mlp2=(256, 128, 64), state_len=128):
+                 mlp1=(256, 128), mlp2=(256, 128, 64), state_len=128, dtype=None):
         super().__init__()
         t1 = 3 + code_ch
-        self.mlp = PointMLP(t1, mlp, generator=g)
-        self.featmlp = PointMLP(t1 + mlp[-1], mlp1, generator=g)
-        self.featout = Dense(mlp1[-1], state_len, g)
-        self.ptsmlp = PointMLP(t1 + mlp[-1], mlp2, generator=g)
-        self.ptsout = Dense(mlp2[-1], 3, g)
+        self.mlp = PointMLP(t1, mlp, generator=g, dtype=dtype)
+        self.featmlp = PointMLP(t1 + mlp[-1], mlp1, generator=g, dtype=dtype)
+        self.featout = Dense(mlp1[-1], state_len, g, dtype)
+        self.ptsmlp = PointMLP(t1 + mlp[-1], mlp2, generator=g, dtype=dtype)
+        self.ptsout = Dense(mlp2[-1], 3, g, dtype)
 
     def forward(self, startpts, code):
         k = startpts.shape[1]
@@ -105,15 +114,15 @@ class InitDecodeLayer(nn.Module):
     """Generates ``ptnum`` points from a code via a learned 3×3 map + shift."""
 
     def __init__(self, code_ch: int, ptnum: int, g: torch.Generator, mlp=(256, 256),
-                 mlp2=(256, 256), state_len=128):
+                 mlp2=(256, 256), state_len=128, dtype=None):
         super().__init__()
         self.ptnum = ptnum
-        self.input_trans = Dense(code_ch, 256, g)
-        self.mlp = PointMLP(256, mlp, generator=g)
-        self.points_out = Dense(mlp[-1], 3 * ptnum + 12, g)
-        self.state_out = Dense(mlp[-1], ptnum * 16, g)
-        self.state_mlp = PointMLP(16 + mlp[-1], mlp2, generator=g)
-        self.state_outo = Dense(mlp2[-1], state_len, g)
+        self.input_trans = Dense(code_ch, 256, g, dtype)
+        self.mlp = PointMLP(256, mlp, generator=g, dtype=dtype)
+        self.points_out = Dense(mlp[-1], 3 * ptnum + 12, g, dtype)
+        self.state_out = Dense(mlp[-1], ptnum * 16, g, dtype)
+        self.state_mlp = PointMLP(16 + mlp[-1], mlp2, generator=g, dtype=dtype)
+        self.state_outo = Dense(mlp2[-1], state_len, g, dtype)
 
     def forward(self, code):
         b, p = code.shape[0], self.ptnum
@@ -135,23 +144,24 @@ class DecodeCell(nn.Module):
 
     def __init__(self, code_ch: int, state_in: int, up_ratio: int, n_steps: int,
                  g: torch.Generator, mlp=(256, 256), mlp1=(128, 64), mlp2=(128, 128),
-                 mlp_mask=(128, 128), mlp_expand=(128,), state_len=128):
+                 mlp_mask=(128, 128), mlp_expand=(128,), state_len=128, dtype=None):
         super().__init__()
         self.up_ratio = up_ratio
         self.state_len = state_len
-        ns = n_steps
-        self.mask_mlp = PointMLP(3 + code_ch, mlp_mask, n_steps=ns, generator=g)
-        self.mask_out = StepDense(mlp_mask[-1], code_ch, ns, g)
-        self.input_trans = StepDense(code_ch, 256, ns, g)
-        self.state_trans = StepDense(state_in, 128, ns, g)
-        self.mlp = PointMLP(256 + 128, mlp, n_steps=ns, generator=g)
-        self.points_mlp = PointMLP(mlp[-1], mlp1, n_steps=ns, generator=g)
-        self.points_out = StepDense(mlp1[-1], 3 * up_ratio, ns, g)
-        self.state_mlp = PointMLP(mlp[-1] + code_ch, mlp2, n_steps=ns, generator=g)
+        ns, d = n_steps, dtype
+        self.mask_mlp = PointMLP(3 + code_ch, mlp_mask, n_steps=ns, generator=g, dtype=d)
+        self.mask_out = StepDense(mlp_mask[-1], code_ch, ns, g, d)
+        self.input_trans = StepDense(code_ch, 256, ns, g, d)
+        self.state_trans = StepDense(state_in, 128, ns, g, d)
+        self.mlp = PointMLP(256 + 128, mlp, n_steps=ns, generator=g, dtype=d)
+        self.points_mlp = PointMLP(mlp[-1], mlp1, n_steps=ns, generator=g, dtype=d)
+        self.points_out = StepDense(mlp1[-1], 3 * up_ratio, ns, g, d)
+        self.state_mlp = PointMLP(mlp[-1] + code_ch, mlp2, n_steps=ns, generator=g, dtype=d)
         ch = mlp2[-1]
         for i in range(up_ratio):
-            self.add_module(f"expand{i}_pre", PointMLP(ch, mlp_expand, n_steps=ns, generator=g))
-            self.add_module(f"expand{i}", StepDense(mlp_expand[-1], state_len, ns, g))
+            self.add_module(f"expand{i}_pre",
+                            PointMLP(ch, mlp_expand, n_steps=ns, generator=g, dtype=d))
+            self.add_module(f"expand{i}", StepDense(mlp_expand[-1], state_len, ns, g, d))
             ch = state_len
 
     def forward(self, code, center, state, step: int):
@@ -182,13 +192,13 @@ class RefineLayer(nn.Module):
     """Residual tanh refinement of coords + state: (coords, state, move)."""
 
     def __init__(self, feat_ch: int, feat2_ch: int, g: torch.Generator,
-                 mlp=(128, 64, 64), mlp2=(128, 128), mlpself=(128, 128)):
+                 mlp=(128, 64, 64), mlp2=(128, 128), mlpself=(128, 128), dtype=None):
         super().__init__()
-        self.self_mlp = PointMLP(3 + feat_ch, mlpself, generator=g)
-        self.mlp = PointMLP(3 + mlpself[-1], mlp, generator=g)
-        self.out = Dense(mlp[-1], 3, g)
-        self.feat_mlp = PointMLP(3 + feat2_ch + feat_ch, mlp2, generator=g)
-        self.feat_out = Dense(mlp2[-1], feat2_ch, g)
+        self.self_mlp = PointMLP(3 + feat_ch, mlpself, generator=g, dtype=dtype)
+        self.mlp = PointMLP(3 + mlpself[-1], mlp, generator=g, dtype=dtype)
+        self.out = Dense(mlp[-1], 3, g, dtype)
+        self.feat_mlp = PointMLP(3 + feat2_ch + feat_ch, mlp2, generator=g, dtype=dtype)
+        self.feat_out = Dense(mlp2[-1], feat2_ch, g, dtype)
 
     def forward(self, pts, feat, feat2):
         n = pts.shape[1]
@@ -237,27 +247,31 @@ class RFNet(nn.Module):
     """The full 3-step completion pyramid.
 
     Parameters are drawn from ``generator`` (a CPU ``torch.Generator``; a
-    fresh one seeded 0 when omitted); move the model with ``.to(device)``."""
+    fresh one seeded 0 when omitted); move the model with ``.to(device)``.
+    ``dtype`` is the feature MLPs' computation dtype (None = float32; the
+    parameters stay float32 either way)."""
 
     def __init__(self, state_len: int = 256, n_seed: int = 32, up_ratio: int = 16,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, dtype: torch.dtype | None = None):
         super().__init__()
         g = generator if generator is not None else torch.Generator().manual_seed(0)
         self.n_seed = n_seed
+        self.dtype = dtype or torch.float32
+        d = dtype
         code = 256  # width of every codeword (cell mlpout / recover mlp2)
-        self.init_mlp = GlobalMLP(3, (64, 128, state_len), g)
-        self.cell = EncodeCell(3, state_len, 3, g)
-        self.recover1 = RecoverCell(code, g)
-        self.recover2 = RecoverCell(code, g)
-        self.recover3 = RecoverCell(code, g)
-        self.init_move = InitMoveLayer(code, g)
-        self.part_mlp = GlobalMLP(3, (64, 128, state_len), g)
-        self.feat_trans = PointMLP(state_len + code, (256, 256), generator=g)
-        self.init_cell = InitDecodeLayer(256, n_seed, g)
-        self.decode_cell = DecodeCell(code, 128, up_ratio, 2, g)
-        self.refine_layer1 = RefineLayer(code, 128, g)
-        self.refine_layer2 = RefineLayer(code, 128, g)
-        self.refine_layer_final = RefineLayer(code, 128, g)
+        self.init_mlp = GlobalMLP(3, (64, 128, state_len), g, d)
+        self.cell = EncodeCell(3, state_len, 3, g, dtype=d)
+        self.recover1 = RecoverCell(code, g, dtype=d)
+        self.recover2 = RecoverCell(code, g, dtype=d)
+        self.recover3 = RecoverCell(code, g, dtype=d)
+        self.init_move = InitMoveLayer(code, g, dtype=d)
+        self.part_mlp = GlobalMLP(3, (64, 128, state_len), g, d)
+        self.feat_trans = PointMLP(state_len + code, (256, 256), generator=g, dtype=d)
+        self.init_cell = InitDecodeLayer(256, n_seed, g, dtype=d)
+        self.decode_cell = DecodeCell(code, 128, up_ratio, 2, g, dtype=d)
+        self.refine_layer1 = RefineLayer(code, 128, g, dtype=d)
+        self.refine_layer2 = RefineLayer(code, 128, g, dtype=d)
+        self.refine_layer_final = RefineLayer(code, 128, g, dtype=d)
         lim = math.sqrt(3.0)  # TF xavier on shape [1]: ±√(6/(1+1))
         for name in ("decline_factor0", "decline_factor1", "decline_factor"):
             p = nn.Parameter(torch.empty(1))

@@ -8,6 +8,12 @@ passes in, so the same seed gives the same weights on every device.
 
 ``StepDense`` keeps the reference's reuse quirk: recurrent steps share the
 weight but each trains its own bias, stored as one ``(n_steps, ch)`` table.
+
+Every layer takes a computation ``dtype`` (None = float32), as the JAX
+package's ``nn.dense(dtype)`` does: input, weight and bias are cast to it,
+as flax's ``promote_dtype`` casts them, and the output stays in it. The
+parameters stay float32, so one ``state_dict`` serves both modes, and their
+gradients come back float32 through the casts.
 """
 
 from __future__ import annotations
@@ -29,10 +35,12 @@ def _xavier_(weight: torch.Tensor, generator: torch.Generator | None) -> None:
 
 class Dense(nn.Linear):
     """One per-point dense layer (the JAX ``dense``): xavier-uniform weight,
-    zero bias."""
+    zero bias, computed in ``dtype``."""
 
-    def __init__(self, in_ch: int, out_ch: int, generator: torch.Generator | None = None):
+    def __init__(self, in_ch: int, out_ch: int, generator: torch.Generator | None = None,
+                 dtype: torch.dtype | None = None):
         super().__init__(in_ch, out_ch)
+        self.dtype = dtype or torch.float32
         _xavier_(self.weight, generator)
         nn.init.zeros_(self.bias)
 
@@ -40,19 +48,25 @@ class Dense(nn.Linear):
         """No-op: ``nn.Linear`` would draw from the global RNG; the
         constructor draws from the model's generator instead."""
 
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        d = self.dtype
+        return F.linear(x.to(d), self.weight.to(d), self.bias.to(d))
+
 
 class StepDense(nn.Module):
     """Dense layer with a SHARED weight and PER-STEP biases ``(n_steps, ch)``."""
 
     def __init__(self, in_ch: int, out_ch: int, n_steps: int,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, dtype: torch.dtype | None = None):
         super().__init__()
+        self.dtype = dtype or torch.float32
         self.weight = nn.Parameter(torch.empty(out_ch, in_ch))
         self.bias = nn.Parameter(torch.zeros(n_steps, out_ch))
         _xavier_(self.weight, generator)
 
     def forward(self, x: torch.Tensor, step: int) -> torch.Tensor:
-        return F.linear(x, self.weight, self.bias[step])
+        d = self.dtype
+        return F.linear(x.to(d), self.weight.to(d), self.bias[step].to(d))
 
 
 class PointMLP(nn.Module):
@@ -63,15 +77,16 @@ class PointMLP(nn.Module):
     takes the recurrent step index."""
 
     def __init__(self, in_ch: int, features: tuple, last_act: Callable | None = F.relu,
-                 n_steps: int = 1, generator: torch.Generator | None = None):
+                 n_steps: int = 1, generator: torch.Generator | None = None,
+                 dtype: torch.dtype | None = None):
         super().__init__()
         self.n_steps = n_steps
         self.last_act = last_act
         self.n_layers = len(features)
         for i, ch in enumerate(features):
             layer = (
-                StepDense(in_ch, ch, n_steps, generator) if n_steps > 1
-                else Dense(in_ch, ch, generator)
+                StepDense(in_ch, ch, n_steps, generator, dtype) if n_steps > 1
+                else Dense(in_ch, ch, generator, dtype)
             )
             self.add_module(f"l{i}", layer)
             in_ch = ch

@@ -271,8 +271,11 @@ def approx_match_cost(xyz1: torch.Tensor, xyz2: torch.Tensor) -> torch.Tensor:
     the two differ in the order of fp32 sums and in a few units in the last
     place of each weight."""
     _check(xyz1, xyz2)
-    xyz1 = xyz1.detach().float().contiguous()
-    xyz2 = xyz2.detach().float().contiguous()
+    for name, x in (("xyz1", xyz1), ("xyz2", xyz2)):
+        if x.dtype != torch.float32:
+            raise ValueError(f"{name}: expected float32 points, got {x.dtype}")
+    xyz1 = xyz1.detach().contiguous()
+    xyz2 = xyz2.detach().contiguous()
     if not xyz1.is_cuda:
         return _approx_match_cost_plain(xyz1, xyz2)
     return _approx_match_cost_kernel(xyz1, xyz2)

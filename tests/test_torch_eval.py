@@ -1,10 +1,12 @@
 """The port's serving CLI and host data path against the JAX package's."""
 
+import json
 import os
 
 import numpy as np
 import pytest
 import torch
+from jax_codec import private_jax_codec  # noqa: F401 (a fixture)
 
 from rfnet_tpu import eval as jeval
 from rfnet_tpu.data import dataset as jdataset
@@ -33,6 +35,7 @@ def _tree(root):
     )
 
 
+@pytest.mark.usefixtures("private_jax_codec")
 def test_eval_cli_csv_matches_jax(tmp_path, rng, monkeypatch):
     """Both CLIs on the same fixtures with the same weights: the JAX CLI's
     random init of the small model (PRNGKey(1)) and its conversion saved as
@@ -107,6 +110,7 @@ def test_eval_loader_failure_raises(tmp_path, rng):
                     "--num_gt_points", "128", "--device", "cpu"])
 
 
+@pytest.mark.usefixtures("private_jax_codec")
 @pytest.mark.parametrize("fmt", ["ascii", "binary"])
 def test_pcd_codec_matches_jax(tmp_path, rng, fmt):
     pts = (rng.randn(123, 3) * 10).astype(np.float32)
@@ -139,3 +143,65 @@ def test_resample_and_synthetic_pairs_match_jax():
         jdataset.resample_pcd(pcd, 25, np.random.RandomState(1)),
     )
     np.testing.assert_array_equal(dataset.resample_pcd(pcd, 4), pcd[:4])
+
+
+def _serve_both(tmp_path, rng, monkeypatch, extra):
+    """The JAX CLI and the port's on the same 5 fixtures with the same
+    weights (as :func:`test_eval_cli_csv_matches_jax`), each run once per
+    argument list of ``extra`` {tag: (jax args, port args)}; returns {tag:
+    CSV lines}."""
+    ids = ["0001/a", "0001/b", "0002/c", "0002/d", "0001/e"]
+    list_path = _fixtures(str(tmp_path), rng, ids)
+    tiny = lambda **kw: TrainConfig(n_seed=4, up_ratio=4, innum=3000, **kw)  # noqa: E731
+    params = create_state(tiny(ptnum=128)).params["params"]
+    ckpt = os.path.join(tmp_path, "model.pt")
+    torch.save(flax_to_state_dict(flatten_params(params)), ckpt)
+    monkeypatch.setattr(jeval, "TrainConfig", tiny)
+    common = ["--list_path", list_path, "--data_dir", os.path.join(tmp_path, "data"),
+              "--num_gt_points", "128", "--plot_freq", "1000", "--batch_size", "2"]
+    rows = {}
+    for tag, (jax_args, port_args) in extra.items():
+        for pkg, main, args in (("jax", jeval.main, jax_args), ("torch", teval.main, port_args)):
+            if args is None:
+                continue
+            ckpt_args = (["--checkpoint", os.path.join(tmp_path, "nockpt")] if pkg == "jax"
+                         else ["--checkpoint", ckpt, "--device", "cpu"])
+            out = os.path.join(tmp_path, f"results_{pkg}_{tag}")
+            np.random.seed(0)  # resample_pcd pads from the global numpy RNG
+            main([*common, "--results_dir", out, *ckpt_args, *args])
+            with open(os.path.join(out, "results.csv")) as f:
+                rows[pkg, tag] = f.read().splitlines()
+    return rows
+
+
+def _assert_rows_close(got, want, rtol):
+    assert len(got) == len(want) == 6 and got[0] == want[0] == "id,cd,emd"
+    for rg, rw in zip(got[1:], want[1:]):
+        ig, *vg = rg.split(",")
+        iw, *vw = rw.split(",")
+        assert ig == iw
+        np.testing.assert_allclose([float(v) for v in vg], [float(v) for v in vw], rtol=rtol)
+
+
+@pytest.mark.usefixtures("private_jax_codec")
+def test_eval_cli_pipelined_matches_sync_and_jax(tmp_path, rng, monkeypatch):
+    """Mirrors ``tests/test_data_eval.py::test_eval_cli_pipelined_matches_sync``:
+    ``--pipeline`` writes the synchronous path's CSV row for row, character
+    for character, and both match the JAX CLI's pipelined CSV to rtol 1e-5."""
+    rows = _serve_both(tmp_path, rng, monkeypatch, {
+        "sync": (None, []), "pipe": (["--pipeline"], ["--pipeline"])})
+    assert rows["torch", "pipe"] == rows["torch", "sync"]
+    _assert_rows_close(rows["torch", "pipe"], rows["jax", "pipe"], 1e-5)
+
+
+def test_eval_profile_dir_writes_a_parseable_trace(tmp_path, rng):
+    list_path = _fixtures(str(tmp_path), rng, ["0001/a"])
+    ckpt = os.path.join(tmp_path, "model.pt")
+    torch.save(teval.RFNet(n_seed=4, up_ratio=4).state_dict(), ckpt)
+    prof = os.path.join(tmp_path, "prof")
+    teval.main(["--list_path", list_path, "--data_dir", os.path.join(tmp_path, "data"),
+                "--checkpoint", ckpt, "--results_dir", os.path.join(tmp_path, "r"),
+                "--num_gt_points", "128", "--device", "cpu", "--profile_dir", prof])
+    with open(os.path.join(prof, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    assert any("aten::" in e.get("name", "") for e in events)

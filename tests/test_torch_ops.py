@@ -209,7 +209,8 @@ def test_port_never_imports_jax():
         "need = {'rfnet_tpu_torch.' + m for m in ('train', 'losses', 'eval', 'ops.emd',"
         " 'ops.nn_grad', 'ops.chamfer', 'ops.chamfer_pruned', 'ops.chamfer_tile', 'ops.grouping',"
         " 'ops.interpolate', 'ops.auction', 'data.dataset', 'kernels', 'data.lmdb_pure',"
-        " 'data.msgpack_lite', 'data.convert', 'data.native', 'compat.ckpt_compat')}\n"
+        " 'data.msgpack_lite', 'data.convert', 'data.native', 'data.online',"
+        " 'compat.ckpt_compat')}\n"
         "assert need <= names, need - names\n"
         "import chip_smoke\n"
         "sys.path.insert(0, 'tools')\n"

@@ -199,8 +199,8 @@ def test_main_rejects_unported_data_and_bad_pyramid(tmp_path):
         train.main([a for a in argv if a != "--synthetic"]
                    + ["--train_path", str(tmp_path / "absent.lmdb"),
                       "--val_path", str(tmp_path / "absent_val.lmdb")])
-    with pytest.raises(SystemExit):  # a data source the port does not have yet
-        train.main(argv + ["--synthetic_online"])
+    with pytest.raises(SystemExit):  # a flag the port does not have yet
+        train.main(argv + ["--mesh"])
     bad = list(argv)
     bad[bad.index("--ptnum") + 1] = "100"
     with pytest.raises(SystemExit):

@@ -16,7 +16,10 @@ Runs where the JAX package runs (on the CPU is enough). It
    CLI on them on the CPU (``JAX_PLATFORMS=cpu python -m rfnet_tpu.eval
    --batch_size 4``), keeping its ``results.csv`` as
    ``weights/rfnet_r4_105000.jax_cpu.csv``. ``chip_smoke.py`` holds the
-   port's serving of the npz on the card to that CSV.
+   port's serving of the npz on the card to that CSV;
+3. runs the same eval with ``--bf16`` (bfloat16 feature MLPs) and keeps its
+   CSV as ``weights/rfnet_r4_105000.jax_cpu_bf16.csv``, the reference of
+   the port's ``--bf16`` serving.
 """
 
 from __future__ import annotations
@@ -59,8 +62,9 @@ def export_npz(path: str) -> int:
     return sum(a.size for a in arrays.values())
 
 
-def export_csv(path: str) -> None:
-    """The JAX eval CLI's results.csv over the first NUM_CLOUDS clouds."""
+def export_csv(path: str, bf16: bool = False) -> None:
+    """The JAX eval CLI's results.csv over the first NUM_CLOUDS clouds, with
+    bfloat16 feature MLPs where ``bf16``."""
     with tempfile.TemporaryDirectory() as tmp:
         subprocess.run([sys.executable, os.path.join(REPO, "tools", "make_synthetic_evalset.py"),
                         "--out", tmp, "--num", str(NUM_CLOUDS), "--pcn_layout"],
@@ -70,7 +74,7 @@ def export_csv(path: str) -> None:
                         "--list_path", os.path.join(tmp, "test.list"),
                         "--data_dir", os.path.join(tmp, "data"),
                         "--results_dir", os.path.join(tmp, "results"),
-                        "--batch_size", "4"],
+                        "--batch_size", "4", *(["--bf16"] if bf16 else [])],
                        check=True, cwd=REPO, env=env)
         shutil.copyfile(os.path.join(tmp, "results", "results.csv"), path)
 
@@ -83,6 +87,9 @@ def main() -> int:
     csv_path = os.path.join(OUT, STEM + ".jax_cpu.csv")
     export_csv(csv_path)
     print(f"wrote {csv_path}")
+    bf16_path = os.path.join(OUT, STEM + ".jax_cpu_bf16.csv")
+    export_csv(bf16_path, bf16=True)
+    print(f"wrote {bf16_path}")
     return 0
 
 

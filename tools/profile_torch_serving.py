@@ -5,6 +5,9 @@
     python3 tools/profile_torch_serving.py --mode train --batch 32 [--iters 3]
     python3 tools/profile_torch_serving.py --mode train --batch 32 --backend tile
     python3 tools/profile_torch_serving.py --checkpoint weights/rfnet_r4_105000.npz
+    python3 tools/profile_torch_serving.py --pipeline [--bf16]
+    python3 tools/profile_torch_serving.py --mode train --batch 32 --data preload [--bf16]
+    python3 tools/profile_torch_serving.py --mode train --batch 32 --data online
 
 Runs one step under ``torch.profiler``: in ``serve`` mode the serving step of
 ``rfnet_tpu_torch.eval`` (full-width RFNet forward + CD/fidelity metrics on
@@ -18,7 +21,17 @@ state_dict); the clouds are the first of the held-out synthetic set
 losses' and metrics' sorted-space scan for the run (the module constant
 ``rfnet_tpu_torch.ops.chamfer._NN_SORTED_BACKEND``): ``dyn`` = z sort + K3,
 the default, ``tile`` = Morton sort + K8, so the two backends' device time
-can be read side by side. It prints:
+can be read side by side. ``--bf16`` computes the feature MLPs in bfloat16
+(the eval CLI's ``--bf16``, the trainer's ``compute_dtype``). In ``serve``
+mode ``--pipeline`` keeps the eval CLI's ``DEPTH`` batches in flight (its
+``dispatch`` and ``collect``: host batches copied in through pinned
+buffers, metrics and completion read back), so the wall is the amortized
+time a batch. In ``train`` mode ``--data`` picks where the batch comes
+from: ``host`` (already on the card, the pyramids made in the step),
+``preload`` (the trainer's ``--preload_device``: the batch gathered on the
+card from a resident set, its pyramids precomputed before the window) or
+``online`` (``--synthetic_online``: generated on the card in the step).
+It prints:
 
 * host wall time per step (to ``synchronize()``), summed device kernel time
   per step, and the device's idle share = 1 - kernel time / wall time;
@@ -50,7 +63,8 @@ GROUPS = (
     ("K7 nn_pruned", ("nn_tiles_kernel<false",)),
     ("K8 nn_tile", ("nn_tiles_kernel<true",)),
     ("boxes K6-K8", ("run_boxes_kernel",)),
-    ("matmul", ("gemm", "cutlass", "cublas", "sm90_xmma", "ampere")),
+    ("matmul", ("gemm", "gemv", "cutlass", "cublas", "sm90_xmma", "ampere", "nvjet",
+                "splitk")),
     ("sort", ("sort", "radix")),
     ("index/scatter", ("index", "scatter", "gather")),
     ("adam", ("adam", "multi_tensor")),
@@ -73,7 +87,14 @@ def main(argv=None) -> int:
     p.add_argument("--backend", choices=("dyn", "tile"), default="dyn")
     p.add_argument("--checkpoint", default=None,
                    help="weights (.npz of flax params or .pt); default the seeded random init")
+    p.add_argument("--bf16", action="store_true", help="bfloat16 feature MLPs")
+    p.add_argument("--pipeline", action="store_true",
+                   help="serve mode: keep the eval CLI's DEPTH batches in flight")
+    p.add_argument("--data", choices=("host", "preload", "online"), default="host",
+                   help="train mode: the batch's source")
     args = p.parse_args(argv)
+    if args.pipeline and args.mode != "serve" or args.data != "host" and args.mode != "train":
+        p.error("--pipeline is a serve option and --data a train option")
 
     import numpy as np
     import torch
@@ -82,8 +103,8 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("profile_torch_serving: no CUDA device available", file=sys.stderr)
         return 1
+    from rfnet_tpu_torch import eval as eval_mod
     from rfnet_tpu_torch.data.dataset import synthetic_pairs
-    from rfnet_tpu_torch.eval import load_state, make_complete_fn
     from rfnet_tpu_torch.models import RFNet
     from rfnet_tpu_torch.ops import chamfer
 
@@ -93,29 +114,52 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip())
     pairs = list(synthetic_pairs(args.batch, seed=1234))
-    partial = torch.from_numpy(np.stack([q for _, q, _ in pairs])).to(dev)
-    gt = torch.from_numpy(np.stack([g for _, _, g in pairs])).to(dev)
-    loaded = load_state(args.checkpoint) if args.checkpoint else None
+    pnp = np.stack([q for _, q, _ in pairs])
+    gnp = np.stack([g for _, _, g in pairs])
+    partial, gt = torch.from_numpy(pnp).to(dev), torch.from_numpy(gnp).to(dev)
+    dtype = torch.bfloat16 if args.bf16 else None
+    loaded = eval_mod.load_state(args.checkpoint, dtype) if args.checkpoint else None
+    pending: list = []
     if args.mode == "train":
         from rfnet_tpu_torch import train
+        from rfnet_tpu_torch.data import online
 
-        config = train.TrainConfig(batch_size=args.batch)
+        config = train.TrainConfig(batch_size=args.batch,
+                                   compute_dtype="bfloat16" if args.bf16 else "float32")
         state = train.create_state(config, dev)
         if loaded is not None:
             state.model.load_state_dict(loaded.state_dict())
         n1 = 2 * config.n_seed
+        n2 = n1 * config.up_ratio
+        if args.data == "preload":
+            gt1s, gt2s = train._precompute_pyramids(gt, n1, n2)
+            rows = torch.arange(args.batch, device=dev)
 
-        def step():
-            return train.train_step(state, partial, gt, n1=n1, n2=n1 * config.up_ratio)
+            def step():
+                take = (x.index_select(0, rows) for x in (partial, gt, gt1s, gt2s))
+                return train.train_step_pyr(state, *take)
+        elif args.data == "online":
+            def step():
+                p_, g_ = online.synthetic_batch(config.seed, state.step, args.batch,
+                                                config.innum, config.ptnum, dev)
+                return train.train_step(state, p_, g_, n1=n1, n2=n2)
+        else:
+            def step():
+                return train.train_step(state, partial, gt, n1=n1, n2=n2)
     else:
-        model = loaded or RFNet(generator=torch.Generator().manual_seed(0))
+        model = loaded or RFNet(generator=torch.Generator().manual_seed(0), dtype=dtype)
         model = model.to(dev).eval()
-        complete, metrics = make_complete_fn(model)
-
-        def step():
-            out = complete(partial)
-            cd, emd = metrics(partial, out, gt)
-            return cd
+        complete, metrics = eval_mod.make_complete_fn(model)
+        if args.pipeline:
+            def step():
+                pending.append(eval_mod.dispatch(complete, metrics, pnp, gnp, dev))
+                if len(pending) == eval_mod.DEPTH:
+                    eval_mod.collect(pending.pop(0))
+        else:
+            def step():
+                out = complete(partial)
+                cd, emd = metrics(partial, out, gt)
+                return cd
 
     for _ in range(3):
         step()
@@ -124,13 +168,18 @@ def main(argv=None) -> int:
         t0 = time.time()
         for _ in range(args.iters):
             step()
+        while pending:
+            eval_mod.collect(pending.pop(0))
         torch.cuda.synchronize(dev)
         wall = (time.time() - t0) / args.iters
     events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     # device_time_total is in microseconds, summed over the profiled steps
     dev_ms = {e.key: e.device_time_total / 1e3 / args.iters for e in events}
     busy = sum(dev_ms.values())
-    print(f"{args.mode} batch {args.batch}, backend {args.backend}: wall {wall * 1e3:.3f} "
+    mode = (f"{args.mode}{' pipelined' if args.pipeline else ''} batch {args.batch}"
+            f"{', data ' + args.data if args.mode == 'train' else ''}"
+            f"{', bf16' if args.bf16 else ''}")
+    print(f"{mode}, backend {args.backend}: wall {wall * 1e3:.3f} "
           f"ms/step, device kernels {busy:.3f} ms/step, idle share "
           f"{1 - busy / (wall * 1e3):.3f}")
     if busy == 0:
