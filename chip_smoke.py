@@ -83,10 +83,30 @@
 9. diagnostics: ``--debug_nans`` stops a b2 step with a NaN weight with
    ``FloatingPointError``; ``--profile_dir`` writes non-empty traces of a
    short eval and a short train run that name K3's and K2's kernels;
-10. prints whether the native .pcd codec was built and how often it read,
+10. data parallelism (``parallel/``, ``ops/sharded.py``) on the one card:
+   (a) the trainer's CLI under ``torchrun --standalone --nproc_per_node 1``
+   with ``--mesh`` (NCCL, a world of 1), 2 b32 steps, an eval and a
+   checkpoint: parameters, Adam state and eval line bit-equal to the run
+   without ``--mesh``; (b) a b32 step's card time with and without a 1-rank
+   NCCL group (the gradient all_reduce), in turns; (c) two spawned ranks
+   sharing the card through a gloo group (a check of correctness, not of
+   scaling: gloo stages through the host) train at global batch 32 (16 a
+   rank) on the host path, ``preload_device`` and ``synthetic_online``:
+   each rank's batches bit-equal to its rows of the one-card run's,
+   parameters bit-equal across ranks after every step, the first step's
+   total loss within 2e-5 and every term within 1e-3 of the one-card
+   step's (another batch size rounds the GEMMs otherwise, and a near-tie
+   merge may pick another neighbour, as in phase 3), equal eval means, one
+   checkpoint, K1-K6 counted a rank; (d) ``eval --mesh 2`` on the 16
+   converged clouds: the CSV within 1e-5 of phase 3's and 1e-3 of the JAX
+   CPU CSV; (e) ``nearest_neighbor_sharded`` on (4,16384,3)² bit-equal to
+   K4 unsplit, ``approx_match_cost_sharded`` within 1e-4 of the plain
+   recurrence and of K6 (JAX's tolerance, ``tests/test_sharded.py``);
+11. prints whether the native .pcd codec was built and how often it read,
    the per-kernel JSON line (with the converged b32 step's times; each
-   kernel's launches on every path, the preload, online, pipeline and bf16
-   ones among them), then ``{"ok": true, "device": ...}``.
+   kernel's launches on every path, the preload, online, pipeline, bf16 and
+   mesh ones among them; "mesh" is rank 0's of the W=2 host-path run), then
+   ``{"ok": true, "device": ...}``.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 It needs the rest of the repository: alone, or without a card, it fails.
@@ -1744,6 +1764,405 @@ def diagnostics(dev) -> None:
           f"{traces['train'][1]}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: data parallelism (train --mesh / --distributed, eval --mesh,
+# ops/sharded.py). The machine has one card: two ranks share it through a
+# gloo group, which checks correctness only (gloo stages through the host),
+# and the NCCL path runs as a world of 1.
+# ---------------------------------------------------------------------------
+
+MESH_RUN = dict(iters=2, batch_size=32, eval_size=4, log_every=1, ckpt_every=2)
+MESH_SET = 64  # synthetic pairs of the mesh phase's training set
+
+
+@contextlib.contextmanager
+def recording_steps(train, seen: list, with_hash: bool = False):
+    """Record each ``train_step_pyr`` call while the block runs: the batch's
+    partial and ground truth (on the CPU), the step's wall time to a
+    synchronize and, with ``with_hash``, a SHA-1 of the parameters after it."""
+    import hashlib
+
+    import torch
+
+    step_pyr = train.train_step_pyr
+
+    def recording(state, partial, gt, *rest, **kw):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = step_pyr(state, partial, gt, *rest, **kw)
+        torch.cuda.synchronize()
+        ms = (time.time() - t0) * 1e3
+        digest = None
+        if with_hash:
+            flat = torch.cat([p.detach().reshape(-1) for p in state.model.parameters()])
+            digest = hashlib.sha1(flat.cpu().numpy().tobytes()).hexdigest()
+        seen.append({"partial": partial.cpu(), "gt": gt.cpu(), "ms": ms, "hash": digest})
+        return out
+
+    train.train_step_pyr = recording
+    try:
+        yield
+    finally:
+        train.train_step_pyr = step_pyr
+
+
+def mesh_train(mesh, mode: str, root: str) -> dict:
+    """A b32 ``train.train`` run (2 steps, an eval of one batch of 4, a
+    checkpoint) on ``mode``'s batch source ("host", "preload" or "online")
+    with ``mesh`` (None: one process): the steps it took, the eval means and
+    times, the launch counts and the files written."""
+    import torch
+
+    from rfnet_tpu_torch import kernels, train
+    from rfnet_tpu_torch.data.dataset import synthetic_dataflow
+
+    config = train.TrainConfig(workdir=os.path.join(root, "model"), **MESH_RUN)
+    df = None if mode == "online" else synthetic_dataflow(MESH_SET, 32, 3000, 16384)[0]
+    vdf, vn = synthetic_dataflow(4, 4, 3000, 16384, is_training=False, seed=1234)
+    seen, evals = [], []
+    evaluate = train.evaluate
+
+    def timed_eval(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        means = evaluate(*args, **kw)
+        evals.append((means, (time.time() - t0) * 1e3))
+        return means
+
+    train.evaluate = timed_eval
+    kernels.reset_launch_counts()
+    try:
+        with recording_steps(train, seen, with_hash=True), \
+                contextlib.redirect_stdout(io.StringIO()):
+            train.train(config, df, vdf, vn, "cuda", mesh=mesh,
+                        preload_device=mode == "preload", synthetic_online=mode == "online")
+    finally:
+        train.evaluate = evaluate
+    torch.cuda.synchronize()
+    out = {"seen": seen, "evals": evals, "launches": dict(kernels.launches),
+           "files": sorted(os.listdir(config.workdir)) if os.path.isdir(config.workdir) else []}
+    if mesh is None or mesh.is_lead:
+        out["metrics"] = read_jsonl(os.path.join(root, "logs", "metrics.jsonl"))
+    return out
+
+
+def mesh_eval(mesh, argv: list) -> dict:
+    """``eval.main(argv)`` on this rank: its standard output and launches."""
+    import torch
+
+    from rfnet_tpu_torch import eval as eval_mod
+    from rfnet_tpu_torch import kernels
+
+    kernels.reset_launch_counts()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        eval_mod.main(argv)
+    torch.cuda.synchronize()
+    return {"stdout": buf.getvalue(), "launches": dict(kernels.launches)}
+
+
+def mesh_sharded(mesh, path: str) -> dict:
+    """``ops.sharded`` on the clouds saved at ``path``: the NN both ways
+    and the approx-EMD cost, each timed once warm, with the launches of K4
+    and this rank's peak memory."""
+    import torch
+
+    from rfnet_tpu_torch import kernels
+    from rfnet_tpu_torch.ops import sharded
+
+    x1, x2 = (t.to(mesh.device) for t in torch.load(path, weights_only=True))
+    out = {}
+    torch.cuda.reset_peak_memory_stats(mesh.device)
+    for name, fn in (("nn", lambda: sharded.nearest_neighbor_sharded(x1, x2, mesh)),
+                     ("emd", lambda: sharded.approx_match_cost_sharded(x1, x2, mesh))):
+        fn()
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        res = fn()
+        torch.cuda.synchronize()
+        out[name] = {"ms": (time.time() - t0) * 1e3, "launches": dict(kernels.launches),
+                     "result": [t.cpu() for t in res] if isinstance(res, tuple) else res.cpu()}
+    out["peak"] = torch.cuda.max_memory_allocated(mesh.device)
+    return out
+
+
+def mesh_worker(rank: int, world: int, work: str, tasks: dict) -> None:
+    """One rank of phase 10's gloo group on cuda:0: ``tasks`` {name: (worker
+    function's name, args)} in order; their results saved for the parent.
+    A failure is written down and ends the process at once (no cleanup that
+    could wait on the other rank)."""
+    import traceback
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    try:
+        dist.init_process_group("gloo", init_method=f"file://{work}/rendezvous", rank=rank,
+                                world_size=world, timeout=timedelta(seconds=300))
+        from rfnet_tpu_torch.parallel import make_mesh
+
+        mesh = make_mesh(world, "cuda:0")
+        out = {}
+        for name, (fn, args) in tasks.items():
+            mesh.barrier()
+            out[name] = globals()[fn](mesh, *args)
+        torch.save(out, os.path.join(work, f"rank{rank}.pt"))
+        dist.destroy_process_group()
+    except BaseException:
+        with open(os.path.join(work, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        os._exit(1)
+
+
+def run_ranks(world: int, work: str, tasks: dict, timeout: float = 600) -> list:
+    """``mesh_worker`` on ``world`` spawned ranks sharing cuda:0; their
+    results in rank order. Fails at once when a rank fails, and kills the
+    others."""
+    import torch
+    import torch.multiprocessing as mp
+
+    os.makedirs(work)
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=mesh_worker, args=(r, world, work, tasks)) for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.time() + timeout
+    try:
+        while any(p.is_alive() for p in procs):
+            if any(p.exitcode not in (None, 0) for p in procs) or time.time() > deadline:
+                break
+            time.sleep(0.1)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join(30)
+    errors = []
+    for r in range(world):
+        path = os.path.join(work, f"rank{r}.err")
+        if os.path.exists(path):
+            with open(path) as f:
+                errors.append(f"rank {r}:\n{f.read()}")
+    check(not errors and all(p.exitcode == 0 for p in procs),
+          f"the gloo ranks failed (exit codes {[p.exitcode for p in procs]}):\n"
+          + "\n".join(errors))
+    return [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
+            for r in range(world)]
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def mesh_w1_cli(dev) -> None:
+    """Phase 10a: the trainer's CLI under torchrun as a world of 1 with NCCL
+    (``--mesh``), 2 b32 steps, an eval and a checkpoint, against the same
+    run without ``--mesh``: the checkpoint (parameters and Adam state) and
+    the eval line bit-equal."""
+    import torch
+
+    from rfnet_tpu_torch import train
+
+    argv = ["--synthetic", "--synthetic_size", str(MESH_SET), "--batch_size", "32",
+            "--steps", "2", "--ckpt_every", "2"]
+    runs = {}
+    for tag in ("plain", "mesh"):
+        workdir = os.path.join(WORK, "w1_" + tag, "model")
+        t0 = time.time()
+        if tag == "plain":
+            with contextlib.redirect_stdout(io.StringIO()):
+                train.main([*argv, "--workdir", workdir])
+        else:
+            proc = subprocess.run(
+                [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                 "--nproc_per_node", "1", "-m", "rfnet_tpu_torch.train", "--mesh", *argv,
+                 "--workdir", workdir], cwd=HERE, capture_output=True, text=True, timeout=600)
+            check(proc.returncode == 0, f"torchrun --mesh failed:\n{proc.stdout[-3000:]}\n"
+                  f"{proc.stderr[-3000:]}")
+            check("mesh: rank 0 of 1 on cuda:0" in proc.stdout, "the torchrun run had no mesh")
+        wall = time.time() - t0
+        check(sorted(os.listdir(workdir)) == ["ckpt_2.pt"], f"{tag} checkpoints")
+        ckpt = torch.load(os.path.join(workdir, "ckpt_2.pt"), map_location="cpu",
+                          weights_only=True)
+        lines = read_jsonl(os.path.join(WORK, "w1_" + tag, "logs", "metrics.jsonl"))
+        runs[tag] = (ckpt, lines, wall)
+    (pc, pl, pw), (mc, ml, mw) = runs["plain"], runs["mesh"]
+    check(pl == ml, f"the eval lines differ: plain {pl}, mesh {ml}")
+    check(all(torch.equal(pc["model"][k], mc["model"][k]) for k in pc["model"]),
+          "the W=1 NCCL --mesh run's parameters differ from the plain run's")
+    po, mo = pc["optimizer"]["state"], mc["optimizer"]["state"]
+    check(po.keys() == mo.keys() and all(
+        torch.equal(po[i][k], mo[i][k]) for i in po for k in po[i]),
+          "the W=1 NCCL --mesh run's Adam state differs from the plain run's")
+    print(f"mesh W=1 (torchrun, NCCL, --mesh): 2 b32 steps + eval + checkpoint; parameters, "
+          f"Adam state and eval line {ml[0]} bit-equal to the run without --mesh (walls "
+          f"{pw:.1f} s in this process, {mw:.1f} s under torchrun with its start)")
+
+
+def mesh_w1_step_ms(dev) -> None:
+    """Phase 10b: a full-width b32 step's card time with and without a
+    1-rank NCCL group (the gradient all_reduce of 3 827 611 float32
+    parameters), in turns, in this process."""
+    import torch
+    import torch.distributed as dist
+
+    from rfnet_tpu_torch import train
+    from rfnet_tpu_torch.parallel import make_mesh
+
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}", rank=0,
+                            world_size=1, device_id=dev)
+    try:
+        mesh = make_mesh(1, dev)
+        state = train.create_state(train.TrainConfig(), dev)
+        n_params = sum(p.numel() for p in state.model.parameters())
+        partial, gt = (x.to(dev) for x in train_batch(32, seed=31))
+        times = {"plain": [], "mesh": []}
+        for tag in ("plain", "mesh", "mesh", "plain"):
+            m = mesh if tag == "mesh" else None
+            card, _ = step_device_ms(lambda: train.train_step(state, partial, gt, n1=64, n2=1024,
+                                                              mesh=m), 3)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            for _ in range(3):
+                train.train_step(state, partial, gt, n1=64, n2=1024, mesh=m)
+            torch.cuda.synchronize()
+            times[tag].append((card, (time.time() - t0) / 3 * 1e3))
+    finally:
+        dist.destroy_process_group()
+    print(f"mesh W=1 step b32 ({n_params} parameters, {4 * n_params} bytes all-reduced a "
+          f"step): card ms plain {[round(c, 3) for c, _ in times['plain']]}, mesh "
+          f"{[round(c, 3) for c, _ in times['mesh']]}; wall ms plain "
+          f"{[round(w, 3) for _, w in times['plain']]}, mesh "
+          f"{[round(w, 3) for _, w in times['mesh']]}")
+
+
+def mesh_run(dev) -> dict:
+    """Phase 10c-e: two gloo ranks sharing cuda:0 (a correctness check, not
+    a scaling number). The trainer at global batch 32 on each batch source
+    against the one-process run; eval ``--mesh 2`` on the 16 converged
+    clouds against phase 3's CSV and the JAX CPU CSV; ``ops.sharded`` on
+    (4,16384,3)² against K4 and K6 unsplit. Returns rank 0's launch counts
+    of the host-path run (the "mesh" path of the kernels line)."""
+    import torch
+
+    from rfnet_tpu_torch import kernels
+    from rfnet_tpu_torch.ops import chamfer, emd
+
+    gen = torch.Generator(device=dev).manual_seed(41)
+    _, gt = train_batch(4, seed=43)
+    x1 = gt.to(dev)
+    x2 = (x1 + 0.005 * torch.randn(x1.shape, generator=gen, device=dev)).contiguous()
+    sharded_in = os.path.join(WORK, "sharded_in.pt")
+    torch.save((x1.cpu(), x2.cpu()), sharded_in)
+    eval_argv = ["--list_path", os.path.join(WORK, "test.list"), "--data_dir",
+                 os.path.join(WORK, "data"), "--checkpoint", WEIGHTS, "--num_gt_points",
+                 "16384", "--plot_freq", "1000", "--batch_size", str(B), "--device", "cuda:0",
+                 "--results_dir", os.path.join(WORK, "mesh_eval"), "--mesh", "2"]
+    tasks = {mode: ("mesh_train", (mode, os.path.join(WORK, "mesh_" + mode)))
+             for mode in ("host", "preload", "online")}
+    tasks["eval"] = ("mesh_eval", (eval_argv,))
+    tasks["sharded"] = ("mesh_sharded", (sharded_in,))
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    ranks = run_ranks(2, os.path.join(WORK, "ranks"), tasks)
+    wall = time.time() - t0
+
+    refs = {mode: mesh_train(None, mode, os.path.join(WORK, "one_" + mode))
+            for mode in ("host", "preload", "online")}
+    for mode, ref in refs.items():
+        r0, r1 = ranks[0][mode], ranks[1][mode]
+        for r, res in enumerate((r0, r1)):
+            check(len(res["seen"]) == 2, f"{mode}: rank {r} took {len(res['seen'])} steps")
+            for s, (got, want) in enumerate(zip(res["seen"], ref["seen"])):
+                rows = slice(16 * r, 16 * r + 16)
+                check(torch.equal(got["partial"], want["partial"][rows])
+                      and torch.equal(got["gt"], want["gt"][rows]),
+                      f"{mode}: rank {r}'s batch of step {s} is not rows {rows} of one card's")
+        check([a["hash"] for a in r0["seen"]] == [b["hash"] for b in r1["seen"]],
+              f"{mode}: the ranks' parameters differ after a step")
+        check([m for m, _ in r0["evals"]] == [m for m, _ in r1["evals"]],
+              f"{mode}: the ranks' eval means differ {r0['evals']} {r1['evals']}")
+        check(r0["files"] == ["ckpt_2.pt"], f"{mode}: checkpoints {r0['files']}")
+        # batches of 16 and 32 round the MLPs' GEMMs otherwise, and a near-tie
+        # merge may then pick another neighbour: each term within phase 3's
+        # 1e-3, the total within JAX's 2e-5 (tests/test_multiprocess.py)
+        first, want = r0["metrics"][0], ref["metrics"][0]
+        check(first["step"] == want["step"] == 0, f"{mode}: metrics {r0['metrics']}")
+        rels = {k: abs(first[k] - v) / max(abs(v), 1e-30) for k, v in want.items() if k != "step"}
+        rel = max(rels.values())
+        check(rels["total"] <= 2e-5 and rel <= 1e-3,
+              f"{mode}: the first step's loss terms {first} vs one card's {want}")
+        want_l = expected_launches(2, 1)
+        if mode == "preload":  # the seeds a step, the eval's, the rank's 32-row shard once
+            want_l["fps"] = 2 * 1 + EVAL_LAUNCHES["fps"] + 2
+        for r, res in enumerate((r0, r1)):
+            check(res["launches"] == want_l, f"{mode}: rank {r}'s launches {res['launches']} "
+                  f"(expected {want_l})")
+        print(f"mesh W=2 gloo {mode}: both ranks stepped on their 16 rows of one card's b32 "
+              f"batches, bit for bit; parameters bit-equal across ranks after each step; "
+              f"first step's loss terms within {rel:.3g} of one card's, the total "
+              f"{rels['total']:.3g} ({first['total']:.6f}); eval means equal on both ranks "
+              f"{r0['evals'][0][0]}; "
+              f"one checkpoint; launches a rank {r0['launches']}; step wall ms rank 0 "
+              f"{[round(x['ms'], 3) for x in r0['seen']]}, one card "
+              f"{[round(x['ms'], 3) for x in ref['seen']]}; eval wall ms rank 0 "
+              f"{round(r0['evals'][0][1], 3)}, one card {round(ref['evals'][0][1], 3)}")
+
+    # eval --mesh 2 on the 16 converged clouds
+    rows, single = read_rows(os.path.join(WORK, "mesh_eval")), read_rows(os.path.join(WORK, "gpu"))
+    check([r[0] for r in rows] == [r[0] for r in single], "eval --mesh 2: CSV ids")
+    one_rel = max_rel(rows, single)
+    jax_rel = max_rel(rows, read_rows(JAX_CPU_CSV))
+    check(one_rel <= 1e-5, f"eval --mesh 2's CSV is {one_rel:.3g} relative off one process's")
+    check(jax_rel <= 1e-3, f"eval --mesh 2's CSV is {jax_rel:.3g} relative off the JAX CPU CSV")
+    check("Average time" in ranks[0]["eval"]["stdout"]
+          and "Average time" not in ranks[1]["eval"]["stdout"],
+          "eval --mesh 2: rank 0 alone prints the results")
+    n_batches = NUM_SERVE // B
+    for r in (0, 1):
+        want_l = {k: n_batches * v for k, v in SERVE_LAUNCHES.items()}
+        check(ranks[r]["eval"]["launches"] == want_l,
+              f"eval --mesh 2: rank {r}'s launches {ranks[r]['eval']['launches']}")
+    print(f"mesh W=2 gloo eval --mesh 2 (16 converged clouds, batch 4, 2 a rank): CSV within "
+          f"{one_rel:.3g} of one process's (limit 1e-5) and {jax_rel:.3g} of the JAX CPU CSV "
+          f"(limit 1e-3); 'Average time' "
+          f"{average_time(ranks[0]['eval']['stdout']):.6f} s/cloud")
+
+    # ops.sharded against the unsplit K4 and K6 (and the plain recurrence)
+    sh = ranks[0]["sharded"]
+    for r in (0, 1):
+        check(all(torch.equal(a, b) for a, b in zip(ranks[r]["sharded"]["nn"]["result"],
+                                                     sh["nn"]["result"])),
+              "the ranks' sharded NN results differ")
+    kernels.reset_launch_counts()
+    d, i = chamfer.nearest_neighbor(x1, x2)
+    check(kernels.launches["nn_dense"] == 1, "the unsplit NN did not run K4")
+    sd, si = sh["nn"]["result"]
+    check(torch.equal(sd, d.cpu()) and torch.equal(si, i.cpu()),
+          "nearest_neighbor_sharded differs from K4 unsplit")
+    k6 = emd.approx_match_cost(x1, x2).cpu()
+    plain = emd._approx_match_cost_plain(x1, x2).cpu()
+    cost = sh["emd"]["result"]
+    rel_plain = float(((cost - plain).abs() / plain.abs()).max())
+    rel_k6 = float(((cost - k6).abs() / k6.abs()).max())
+    # JAX's tolerance for the sharded cost (tests/test_sharded.py)
+    check(rel_plain <= 1e-4, f"approx_match_cost_sharded {cost} vs the plain recurrence {plain}")
+    check(rel_k6 <= 1e-4, f"approx_match_cost_sharded {cost} vs K6 {k6}")
+    print(f"mesh W=2 gloo ops.sharded (4,16384,3)^2: nearest_neighbor_sharded bit-equal to K4 "
+          f"unsplit (distances and indices; {sh['nn']['launches'].get('nn_dense', 0)} K4 launch "
+          f"a rank, {sh['nn']['ms']:.3f} ms); approx_match_cost_sharded within {rel_plain:.3g} "
+          f"of the plain recurrence and {rel_k6:.3g} of K6 ({sh['emd']['ms']:.3f} ms); peak "
+          f"memory a rank {sh['peak']} bytes; the whole W=2 spawn {wall:.1f} s")
+    return {"mesh": ranks[0]["host"]["launches"],
+            "mesh_ranks": [ranks[r]["host"]["launches"] for r in (0, 1)]}
+
+
 def main() -> int:
     import torch
 
@@ -1787,6 +2206,11 @@ def main() -> int:
         ops_counts = op_api(dev)
         tile_counts = tile_backend(dev)
         diagnostics(dev)
+        t_mesh = time.time()
+        mesh_w1_cli(dev)
+        mesh_w1_step_ms(dev)
+        mesh_counts = mesh_run(dev)
+        print(f"phase 10 (data parallelism): {time.time() - t_mesh:.1f} s")
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 
@@ -1800,9 +2224,13 @@ def main() -> int:
            "nn_tile": ("nn_tile.cu", "rfnet_tpu/ops/pallas/chamfer_tile.py:214", "tile")}
     by_path = {"serve": serve_counts, "train": train_counts, "lmdb": lmdb_counts,
                "ops": ops_counts, "tile": tile_counts, "preload": preload_counts,
-               "online": online_counts, "pipeline": pipeline_counts, "bf16": bf16_counts}
+               "online": online_counts, "pipeline": pipeline_counts, "bf16": bf16_counts,
+               "mesh": mesh_counts["mesh"]}
     for name, (_, _, path) in src.items():
         check(by_path[path][name] > 0, f"{name} was not launched on the {path} path")
+    for name in ("fps", "nn_coords", "nn_dyn", "nn_dense", "nn_grad", "emd_cost"):
+        check(all(c[name] > 0 for c in mesh_counts["mesh_ranks"]),
+              f"{name} was not launched on every rank of the mesh path")
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": "rfnet_tpu_torch/csrc/" + file,
          "replaces": replaces, "launches": by_path[path][name],

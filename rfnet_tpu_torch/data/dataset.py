@@ -126,21 +126,28 @@ def _lmdb_items(lmdb_path: str):
 
 
 class BatchedDataflow:
-    """index stream (a permutation per epoch when training) → resample →
-    batch → background prefetch thread, with the JAX package's seeds (1 for
-    the index stream and for resampling) and depth (8 batches).
+    """index stream (a permutation per epoch when training) → this shard's
+    indices → resample → batch → background prefetch thread, with the JAX
+    package's seeds (1 for the index stream, 1 + 997·shard_id for
+    resampling) and depth (8 batches). Shard ``shard_id`` of ``num_shards``
+    takes every ``num_shards``-th index of the stream from ``shard_id``, so
+    the shards of one step hold the rows of the one-shard stream's step.
 
     Batches are ``(ids, inputs (b, input_size, 3) f32, input_size,
     gts (b, gt_size, 3) f32)``, the reference's ``BatchData`` contract."""
 
     def __init__(self, size: int, load_fn, batch_size: int, input_size: int, gt_size: int,
-                 is_training: bool = True):
+                 is_training: bool = True, shard_id: int = 0, num_shards: int = 1):
+        if not 0 <= shard_id < num_shards:
+            raise ValueError(f"shard_id {shard_id} is not one of {num_shards} shards")
         self.size = size
         self._load = load_fn
         self.batch_size = batch_size
         self.input_size = input_size
         self.gt_size = gt_size
         self.is_training = is_training
+        self.shard_id = shard_id
+        self.num_shards = num_shards
 
     def _index_stream(self):
         # infinite epochs in both modes, as the reference's RepeatedData(-1)
@@ -149,10 +156,10 @@ class BatchedDataflow:
             order = np.arange(self.size)
             if self.is_training:
                 rng.shuffle(order)
-            yield from order
+            yield from order[self.shard_id :: self.num_shards]
 
     def _batches(self):
-        rng = np.random.RandomState(_SEED)
+        rng = np.random.RandomState(_SEED + 997 * self.shard_id)
         holder = []
         for i in self._index_stream():
             holder.append(self._load(int(i)))
@@ -203,18 +210,20 @@ class BatchedDataflow:
 
 
 def lmdb_dataflow(lmdb_path: str, batch_size: int, input_size: int, output_size: int,
-                  is_training: bool):
+                  is_training: bool, shard_id: int = 0, num_shards: int = 1):
     """The reference's entry (``data_util.py:73-87``) over a tensorpack
     LMDBSerializer database: returns (df, size)."""
     size, load = _lmdb_items(lmdb_path)
-    return BatchedDataflow(size, load, batch_size, input_size, output_size, is_training), size
+    return BatchedDataflow(size, load, batch_size, input_size, output_size, is_training,
+                           shard_id, num_shards), size
 
 
 def synthetic_dataflow(num: int, batch_size: int, input_size: int, output_size: int,
-                       is_training: bool = True, seed: int = 0):
+                       is_training: bool = True, seed: int = 0, shard_id: int = 0,
+                       num_shards: int = 1):
     """A dataflow over ``num`` synthetic pairs (partials of 2·input_size
     points, resampled to input_size per batch): returns (df, num)."""
     items = list(synthetic_pairs(num, input_size * 2, output_size, seed))
     df = BatchedDataflow(num, items.__getitem__, batch_size, input_size, output_size,
-                         is_training)
+                         is_training, shard_id, num_shards)
     return df, num

@@ -1,6 +1,6 @@
 """Evaluation / serving CLI — the ``recon_test.py`` contract, on the card.
 
-Port of ``rfnet_tpu/eval.py`` on one device:
+Port of ``rfnet_tpu/eval.py``:
   * reads each ``<data_dir>/{partial,complete}/<id>.pcd`` of ``--list_path``,
     completes the partial cloud, and writes ``results.csv`` with header
     ``id,cd,emd`` where ``cd`` is the per-sample chamfer distance and the
@@ -16,7 +16,13 @@ Port of ``rfnet_tpu/eval.py`` on one device:
     timed to ``synchronize()``, the reference's convention;
   * ``--bf16`` computes the feature MLPs in bfloat16 (parameters and
     coordinates stay float32), the JAX CLI's serving mode;
-  * ``--profile_dir`` writes a ``torch.profiler`` Chrome trace of the run.
+  * ``--profile_dir`` writes a ``torch.profiler`` Chrome trace of the run;
+  * ``--mesh N`` serves data-parallel over the N ranks torchrun starts (one
+    card a rank with NCCL, or gloo on the CPU): every rank reads each chunk
+    of ``batch_size`` clouds (a multiple of N), completes and scores its
+    ``batch_size/N`` rows, and one all_reduce gives every rank the chunk's
+    per-cloud metrics; rank 0 writes ``results.csv`` and prints, each rank
+    writes the plots and ``.pcd`` files of its rows.
 
 Weights (``--checkpoint``) come from a ``torch.save``d ``state_dict``
 (``.pt``) or from an ``.npz`` of flat flax params (``{"a/b/leaf": array}``,
@@ -30,6 +36,7 @@ card is an error.
     python -m rfnet_tpu_torch.eval --list_path test.list --data_dir test \\
         --checkpoint weights/rfnet_r4_105000.npz --results_dir results/recon \\
         --batch_size 4 [--pipeline] [--bf16] [--profile_dir trace/]
+    torchrun --nproc_per_node 2 -m rfnet_tpu_torch.eval --mesh 2 ... --batch_size 4
 """
 
 from __future__ import annotations
@@ -40,13 +47,13 @@ import csv
 import importlib.util
 import os
 import queue
-import sys
 import threading
 import time
 from collections import deque
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from rfnet_tpu_torch.compat import ckpt_compat
 from rfnet_tpu_torch.compat.convert import flax_to_state_dict
@@ -54,12 +61,11 @@ from rfnet_tpu_torch.data.dataset import resample_pcd
 from rfnet_tpu_torch.data.pcd_io import read_pcd, save_pcd
 from rfnet_tpu_torch.models import RFNet
 from rfnet_tpu_torch.ops.chamfer import chamfer_sample_means, nn_sample_mean_one
+from rfnet_tpu_torch.parallel import Mesh, make_mesh, maybe_initialize_distributed, torchrun_world
 
 INPUT_POINTS = 3000
 RANDOM_INIT_SEED = 1  # the JAX TrainConfig's default seed
 DEPTH = 3  # batches in flight under --pipeline
-# flags of the JAX package's CLI that the port does not have yet (ROADMAP.md §1)
-_NOT_PORTED = ("--mesh",)
 
 
 def count_params(model: torch.nn.Module) -> int:
@@ -118,22 +124,13 @@ def resolve_device(name: str | torch.device) -> torch.device:
     return device
 
 
-def refuse_unported(parser: argparse.ArgumentParser, argv, flags) -> None:
-    """Stop with the parser's error for each of ``flags`` given in ``argv``
-    (``sys.argv[1:]`` when None): JAX CLI flags the port does not have yet."""
-    given = {a.split("=")[0] for a in (sys.argv[1:] if argv is None else argv)}
-    for flag in sorted(given.intersection(flags)):
-        parser.error(f"{flag} is not ported to the PyTorch package yet "
-                     "(ROADMAP.md, modules to port)")
-
-
 @contextlib.contextmanager
-def profile_trace(profile_dir: str | None, device: torch.device):
+def profile_trace(profile_dir: str | None, device: torch.device, name: str = "trace.json"):
     """``torch.profiler`` around the block, as ``jax.profiler`` wraps the
     JAX CLIs' runs: host activity, and the card's kernels and copies where
     ``device`` is CUDA. The Chrome trace is written to
-    ``<profile_dir>/trace.json`` however the block ends. Does nothing
-    without a directory."""
+    ``<profile_dir>/<name>`` however the block ends. Does nothing without a
+    directory."""
     if not profile_dir:
         yield
         return
@@ -149,13 +146,16 @@ def profile_trace(profile_dir: str | None, device: torch.device):
         yield
     finally:
         prof.stop()
-        path = os.path.join(profile_dir, "trace.json")
+        path = os.path.join(profile_dir, name)
         prof.export_chrome_trace(path)
         print(f"profiler trace written to {path}")
 
 
-def make_complete_fn(model: RFNet):
-    """(complete, metrics) pair on the model's device."""
+def make_complete_fn(model: RFNet, mesh: Mesh | None = None):
+    """(complete, metrics) pair on the model's device. With a ``mesh`` both
+    take this rank's rows of a batch, and ``metrics`` returns the per-cloud
+    (cd, fidelity) of the whole batch on every rank: each rank writes its
+    rows' values into zeros and one all_reduce SUM fills in the others'."""
 
     @torch.inference_mode()
     def complete(partial):
@@ -164,7 +164,12 @@ def make_complete_fn(model: RFNet):
     @torch.inference_mode()
     def metrics(partial, output, gt):
         m1, m2 = chamfer_sample_means(output, gt)
-        return (m1 + m2) / 2, nn_sample_mean_one(partial, output)
+        scores = torch.stack([(m1 + m2) / 2, nn_sample_mean_one(partial, output)])
+        if mesh is not None:
+            whole = scores.new_zeros((2, scores.shape[1] * mesh.size))
+            whole[:, mesh.rows(whole.shape[1])] = scores
+            scores = mesh.all_reduce_(whole)
+        return scores[0], scores[1]
 
     return complete, metrics
 
@@ -242,15 +247,59 @@ def collect(pending) -> list[np.ndarray]:
     return [t.numpy() for t in host]
 
 
-def test(args):
-    device = resolve_device(args.device)
+def _serving_mesh(args) -> tuple[Mesh | None, bool]:
+    """``--mesh N``'s mesh: N must be torchrun's world size (1 outside
+    torchrun) and divide the batch, both checked before the process group
+    forms. Returns (mesh, whether this call formed the group)."""
+    n = args.mesh
+    world = dist.get_world_size() if dist.is_initialized() else torchrun_world() or 1
+    if n != world:
+        raise SystemExit(f"--mesh {n} needs {n} ranks, and this world has {world}: launch "
+                         f"torchrun --nproc_per_node {n} -m rfnet_tpu_torch.eval --mesh {n} ...")
+    if max(1, args.batch_size) % n:
+        raise SystemExit(f"--batch_size {args.batch_size} must be a multiple of the "
+                         f"mesh size {n}")
+    formed = maybe_initialize_distributed(args.device)
+    return make_mesh(n, args.device), formed
+
+
+def test(args, mesh: Mesh | None = None):
+    """Serve ``args.list_path``; with ``mesh`` (or ``args.mesh`` N, which
+    forms the process group from torchrun's environment) as one rank of a
+    data-parallel world."""
+    formed = False
+    if mesh is None and getattr(args, "mesh", 0):
+        mesh, formed = _serving_mesh(args)
+    elif mesh is not None and (max(1, args.batch_size) % mesh.size
+                               or getattr(args, "mesh", 0) not in (0, mesh.size)):
+        raise SystemExit(f"--batch_size {args.batch_size} must be a multiple of the "
+                         f"mesh size {mesh.size}, and --mesh {args.mesh} equal to it")
+    try:
+        if mesh is not None:
+            mesh.build_kernels()
+        device = resolve_device(args.device) if mesh is None else mesh.device
+        trace = "trace.json" if mesh is None else f"trace_rank{mesh.rank}.json"
+        with profile_trace(args.profile_dir, device, trace):
+            _serve(args, device, mesh)
+    finally:
+        if formed:
+            dist.destroy_process_group()
+
+
+def _serve(args, device: torch.device, mesh: Mesh | None):
+    """The serving loop of :func:`test`. Under a mesh every rank reads each
+    whole chunk (the loader's resampling draws from the global RNG in row
+    order, so each rank draws what one process would) and takes its rows;
+    rank 0 writes the CSV and prints."""
+    lead = mesh is None or mesh.is_lead
+    say = print if lead else (lambda *a, **k: None)
     dtype = torch.bfloat16 if args.bf16 else None
     model = load_state(args.checkpoint, dtype).to(device).eval()
-    print("trainable parameters:", count_params(model))
-    complete, metrics = make_complete_fn(model)
+    say("trainable parameters:", count_params(model))
+    complete, metrics = make_complete_fn(model, mesh)
     can_plot = importlib.util.find_spec("matplotlib") is not None
     if not can_plot:
-        print("plots skipped: matplotlib not installed")
+        say("plots skipped: matplotlib not installed")
 
     os.makedirs(args.results_dir, exist_ok=True)
     with open(args.list_path) as f:
@@ -263,6 +312,7 @@ def test(args):
     cd_per_cat: dict[str, list] = {}
     emd_per_cat: dict[str, list] = {}
     bsz = max(1, args.batch_size)
+    mine = slice(0, bsz) if mesh is None else mesh.rows(bsz)  # this rank's rows of a chunk
 
     load_q: queue.Queue = queue.Queue(maxsize=4)
     stop = threading.Event()
@@ -270,9 +320,11 @@ def test(args):
         target=_load_chunks, args=(model_list, bsz, args, load_q, stop), daemon=True
     )
     loader.start()
-    csv_file = open(os.path.join(args.results_dir, "results.csv"), "w", newline="")
-    writer = csv.writer(csv_file)
-    writer.writerow(["id", "cd", "emd"])
+    csv_file = writer = None
+    if lead:
+        csv_file = open(os.path.join(args.results_dir, "results.csv"), "w", newline="")
+        writer = csv.writer(csv_file)
+        writer.writerow(["id", "cd", "emd"])
 
     def get_item():
         """Next loader item; re-raises a loader-thread failure here."""
@@ -293,10 +345,13 @@ def test(args):
             cd, emd = float(cds[j]), float(emds[j])
             total_cd += cd
             total_emd += emd
-            writer.writerow([model_id, cd, emd])
+            if lead:
+                writer.writerow([model_id, cd, emd])
             synset_id, short_id = model_id.split("/")
             cd_per_cat.setdefault(synset_id, []).append(cd)
             emd_per_cat.setdefault(synset_id, []).append(emd)
+            if not mine.start <= j < mine.stop:
+                continue  # another rank's cloud: its plot and .pcd are that rank's
             if i % args.plot_freq == 0 and can_plot:
                 from rfnet_tpu_torch.visu import plot_pcd_three_views
 
@@ -304,7 +359,7 @@ def test(args):
                 os.makedirs(plot_dir, exist_ok=True)
                 plot_pcd_three_views(
                     os.path.join(plot_dir, f"{short_id}.png"),
-                    [pnp[j], completion[j], gnp[j]],
+                    [pnp[j], completion[j - mine.start], gnp[j]],
                     ["input", "output", "ground truth"],
                     f"CD {cd:.4f}  EMD {emd:.4f}",
                     [5, 0.5, 0.5],
@@ -312,7 +367,7 @@ def test(args):
             if args.save_pcd:
                 pcd_dir = os.path.join(args.results_dir, "pcds", synset_id)
                 os.makedirs(pcd_dir, exist_ok=True)
-                save_pcd(os.path.join(pcd_dir, f"{short_id}.pcd"), completion[j])
+                save_pcd(os.path.join(pcd_dir, f"{short_id}.pcd"), completion[j - mine.start])
 
     try:
         if not args.pipeline:
@@ -320,8 +375,8 @@ def test(args):
             # synchronize(); only the disk reads overlap
             while (item := get_item()) is not None:
                 chunk_start, chunk, pnp, gnp = item
-                pb = torch.from_numpy(pnp).to(device)
-                gb = torch.from_numpy(gnp).to(device)
+                pb = torch.from_numpy(pnp[mine]).to(device)
+                gb = torch.from_numpy(gnp[mine]).to(device)
                 start = time.time()
                 completion = complete(pb)
                 if device.type == "cuda":
@@ -345,7 +400,8 @@ def test(args):
                         break
                     chunk_start, chunk, pnp, gnp = item
                     pending.append((chunk_start, chunk, pnp, gnp,
-                                    dispatch(complete, metrics, pnp, gnp, device)))
+                                    dispatch(complete, metrics, pnp[mine], gnp[mine],
+                                             device)))
                 if pending:
                     chunk_start, chunk, pnp, gnp, batch = pending.popleft()
                     cds, emds, completion = collect(batch)
@@ -356,17 +412,18 @@ def test(args):
                                     elapsed)
     finally:
         stop.set()
-        csv_file.close()
+        if csv_file is not None:
+            csv_file.close()
 
-    print("Average time: %f" % (total_time / max(1, timed_models)))
-    print("Average Chamfer distance: %f" % (total_cd / max(1, len(model_list))))
-    print("Average Earth mover distance: %f" % (total_emd / max(1, len(model_list))))
-    print("Chamfer distance per category")
+    say("Average time: %f" % (total_time / max(1, timed_models)))
+    say("Average Chamfer distance: %f" % (total_cd / max(1, len(model_list))))
+    say("Average Earth mover distance: %f" % (total_emd / max(1, len(model_list))))
+    say("Chamfer distance per category")
     for synset_id in cd_per_cat:
-        print(synset_id, "%f" % np.mean(cd_per_cat[synset_id]))
-    print("Earth mover distance per category")
+        say(synset_id, "%f" % np.mean(cd_per_cat[synset_id]))
+    say("Earth mover distance per category")
     for synset_id in emd_per_cat:
-        print(synset_id, "%f" % np.mean(emd_per_cat[synset_id]))
+        say(synset_id, "%f" % np.mean(emd_per_cat[synset_id]))
 
 
 def main(argv=None):
@@ -394,13 +451,20 @@ def main(argv=None):
     parser.add_argument(
         "--profile_dir", default=None,
         help="write a torch.profiler Chrome trace of the run (host activity, and the "
-        "card's kernels and copies) to <dir>/trace.json",
+        "card's kernels and copies) to <dir>/trace.json (under --mesh, "
+        "<dir>/trace_rank<r>.json a rank)",
     )
-    parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    refuse_unported(parser, argv, _NOT_PORTED)
+    parser.add_argument(
+        "--mesh", type=int, default=0,
+        help="data-parallel serving over the N ranks torchrun starts (torchrun "
+        "--nproc_per_node N ... --mesh N; a card a rank with NCCL, gloo on the CPU): each "
+        "rank completes and scores batch_size/N clouds of each batch (batch_size must be "
+        "a multiple of N); per-cloud metrics as one process's; rank 0 writes results.csv",
+    )
+    parser.add_argument("--device", default="cuda",
+                        help="cuda (default; under --mesh the card LOCAL_RANK) or cpu")
     args = parser.parse_args(argv)
-    with profile_trace(args.profile_dir, resolve_device(args.device)):
-        test(args)
+    test(args)
 
 
 if __name__ == "__main__":

@@ -118,12 +118,25 @@ def groupin_near(ptmat: torch.Tensor) -> torch.Tensor:
     return torch.mean(torch.sum(ptmat**2, dim=-1))
 
 
-def zero_groupnear(ptcens: torch.Tensor, rawpts: torch.Tensor, outmat: torch.Tensor):
+def zero_groupnear(ptcens: torch.Tensor, rawpts: torch.Tensor, outmat: torch.Tensor,
+                   mesh=None):
     """Hinge density regulariser: decode offsets must stay below 0.4× the
     mean NN gap of the ground-truth pyramids (both constants of the loss, so
-    the one-sided scan carries no gradient)."""
+    the one-sided scan carries no gradient).
+
+    With a ``mesh`` (a :class:`~rfnet_tpu_torch.parallel.Mesh`) each rank
+    holds its rows of the global batch, and the hinge is taken on the two
+    GLOBAL means (all-reduced, detached): the value is the global one on
+    every rank, and each rank's term carries its local gradient times the
+    global hinge's indicator, so the mean of the ranks' gradients is the
+    global batch's. A relu of each rank's own means would not be."""
     dist2, _ = nearest_neighbor(rawpts, ptcens)
-    return torch.relu(groupin_near(outmat) - 0.4 * dist2.mean())
+    near = groupin_near(outmat)
+    if mesh is None:
+        return torch.relu(near - 0.4 * dist2.mean())
+    near_g, gap_g = mesh.mean(torch.stack([near.detach().float(), dist2.mean()]))
+    hinge = near_g - 0.4 * gap_g
+    return torch.relu(hinge) + (hinge > 0).to(hinge.dtype) * (near - near.detach())
 
 
 # ---------------------------------------------------------------------------
@@ -166,9 +179,13 @@ class LossBreakdown(NamedTuple):
     loss_dec: torch.Tensor
 
 
-def total_loss(outputs, gt, gt1, gt2, step: int, schedule_scale: float = 1.0) -> LossBreakdown:
+def total_loss(outputs, gt, gt1, gt2, step: int, schedule_scale: float = 1.0,
+               mesh=None) -> LossBreakdown:
     """The composite objective; gt1/gt2 are the 64/1024-point FPS pyramids
-    of gt, computed by the train step."""
+    of gt, computed by the train step. With a ``mesh``, this rank's terms
+    over its rows of the global batch: every term but ``zero_groupnear``'s
+    is a mean over equal-size rows, so the ranks' mean of each is the
+    global batch's."""
     cd1 = earth_mover(gt1, outputs.points1_pre)
     cd2 = earth_mover(gt2, outputs.points2_pre)
     m3a, m3b, m4a, m4b = chamfer_means_pair(gt, outputs.out3, outputs.out4)
@@ -177,8 +194,8 @@ def total_loss(outputs, gt, gt1, gt2, step: int, schedule_scale: float = 1.0) ->
     recd3 = re_chamfer(gt, outputs.out3, part=8)
     moveloss = torch.mean(torch.sum(outputs.final_move**2, dim=-1))
     loss = 0.2 * (cd1 + cd2) + cd3 + cd4 + 0.2 * recd3 + 0.1 * moveloss
-    loss_d1 = 0.05 * zero_groupnear(gt1, gt2, outputs.moves1)
-    loss_d2 = 0.05 * zero_groupnear(gt2, gt, outputs.moves2)
+    loss_d1 = 0.05 * zero_groupnear(gt1, gt2, outputs.moves1, mesh)
+    loss_d2 = 0.05 * zero_groupnear(gt2, gt, outputs.moves2, mesh)
     loss_dec = torch.sum(outputs.decfactor_sq)
     alpha1 = decfactor_weight(step, schedule_scale)
     loss = loss + loss_d1 + loss_d2 + alpha1 * loss_dec

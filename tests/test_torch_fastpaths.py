@@ -1,8 +1,9 @@
 """The trainer's fast paths and diagnostics on the CPU at a tiny size: the
 on-device synthetic stream (``data/online.py``, ``--synthetic_online``),
 the device-resident training set (``--preload_device``), ``--debug_nans``,
-``--profile_dir``, the TensorBoard scalars and histograms, and the flags
-the port refuses, against the JAX package's where it has a counterpart."""
+``--profile_dir``, the TensorBoard scalars and histograms, and what the
+data-parallel flags refuse, against the JAX package's where it has a
+counterpart."""
 
 import dataclasses
 import json
@@ -262,16 +263,22 @@ def test_tensorboard_scalars_and_histograms(tmp_path):
 # ------------------------------------------------------------ refusals
 
 
-def test_unported_flags_are_refused_by_name(tmp_path, capsys):
-    assert train._NOT_PORTED == ("--mesh", "--distributed")
-    for flag in train._NOT_PORTED:
-        with pytest.raises(SystemExit):
-            train.main(_tiny_argv(tmp_path / "m", 1, "--synthetic", flag))
-        assert f"{flag} is not ported" in capsys.readouterr().err
+def test_unported_flags_are_refused_by_name(tmp_path, capsys, monkeypatch):
+    """No flag of the JAX CLIs is refused as not ported any more: ``--mesh``
+    and ``--distributed`` are data parallelism over torchrun's ranks. What
+    they refuse, by name and before any process group forms, is a world
+    they cannot use: ``--distributed`` outside torchrun, and eval ``--mesh
+    2`` in a world of 1."""
+    assert not hasattr(train, "_NOT_PORTED") and not hasattr(teval, "_NOT_PORTED")
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
     with pytest.raises(SystemExit):
+        train.main(_tiny_argv(tmp_path / "m", 1, "--synthetic", "--distributed"))
+    assert "--distributed needs torchrun's environment" in capsys.readouterr().err
+    with pytest.raises(SystemExit, match="--mesh 2 needs 2 ranks, and this world has 1"):
         teval.main(["--list_path", "absent.list", "--mesh", "2", "--device", "cpu"])
-    assert "--mesh is not ported" in capsys.readouterr().err
     assert not os.path.exists(tmp_path / "m")
+    assert not torch.distributed.is_initialized()
 
 
 def test_debug_nans_flag_leaves_a_finite_run_alone(tmp_path):

@@ -210,7 +210,7 @@ def test_port_never_imports_jax():
         " 'ops.nn_grad', 'ops.chamfer', 'ops.chamfer_pruned', 'ops.chamfer_tile', 'ops.grouping',"
         " 'ops.interpolate', 'ops.auction', 'data.dataset', 'kernels', 'data.lmdb_pure',"
         " 'data.msgpack_lite', 'data.convert', 'data.native', 'data.online',"
-        " 'compat.ckpt_compat')}\n"
+        " 'compat.ckpt_compat', 'parallel', 'parallel.mesh', 'ops.sharded')}\n"
         "assert need <= names, need - names\n"
         "import chip_smoke\n"
         "sys.path.insert(0, 'tools')\n"

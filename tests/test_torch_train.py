@@ -193,14 +193,16 @@ def test_main_synthetic_cpu_checkpoints_eval_best_and_resume(tmp_path, capsys):
     assert "trained 1 steps (now at step 5)" in text
 
 
-def test_main_rejects_unported_data_and_bad_pyramid(tmp_path):
+def test_main_rejects_unported_data_and_bad_pyramid(tmp_path, monkeypatch):
     argv = _tiny_argv(str(tmp_path / "m"), 1)
     with pytest.raises(SystemExit):  # an LMDB that is not there
         train.main([a for a in argv if a != "--synthetic"]
                    + ["--train_path", str(tmp_path / "absent.lmdb"),
                       "--val_path", str(tmp_path / "absent_val.lmdb")])
-    with pytest.raises(SystemExit):  # a flag the port does not have yet
-        train.main(argv + ["--mesh"])
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(SystemExit):  # --distributed outside torchrun
+        train.main(argv + ["--distributed"])
     bad = list(argv)
     bad[bad.index("--ptnum") + 1] = "100"
     with pytest.raises(SystemExit):
