@@ -102,10 +102,23 @@
    CPU CSV; (e) ``nearest_neighbor_sharded`` on (4,16384,3)² bit-equal to
    K4 unsplit, ``approx_match_cost_sharded`` within 1e-4 of the plain
    recurrence and of K6 (JAX's tolerance, ``tests/test_sharded.py``);
-11. prints whether the native .pcd codec was built and how often it read,
+11. export and weights interop on the converged weights and phase 3's 16
+   clouds: the weights written as a reference TF bundle, imported by the
+   ref-import CLI into a workdir and served by the eval CLI from that
+   directory (the CSV equal to phase 3's row for row), the ``.npz`` writer
+   read back; the export CLI's card artifacts (batch 4, a symbolic batch,
+   ``--bf16`` batch 4) loaded in a fresh process through ``load_forward``
+   and run on the 16 clouds at batch 4, 1 and 16: each within 1e-6 of the
+   live forward (expected equal) with K1 once and K2 three times a batch;
+   the artifacts' and the live model's forwards timed at b4 and b32, with
+   the export and load seconds and the artifacts' bytes; K1's and K2's
+   wrapper time through their operators against the operators' bodies
+   called directly (and K1 through ``torch.library.custom_op``);
+12. prints whether the native .pcd codec was built and how often it read,
    the per-kernel JSON line (with the converged b32 step's times; each
-   kernel's launches on every path, the preload, online, pipeline, bf16 and
-   mesh ones among them; "mesh" is rank 0's of the W=2 host-path run), then
+   kernel's launches on every path, the preload, online, pipeline, bf16,
+   mesh and export ones among them; "mesh" is rank 0's of the W=2 host-path
+   run, "export" the b4 artifact's 4 batches), then
    ``{"ok": true, "device": ...}``.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -2162,6 +2175,220 @@ def mesh_run(dev) -> dict:
     return {"mesh": ranks[0]["host"]["launches"],
             "mesh_ranks": [ranks[r]["host"]["launches"] for r in (0, 1)]}
 
+# phase 11: the exported artifacts, at these batch sizes (the 16 clouds in
+# batches of each), checked in a fresh process
+EXPORTS = {"b4": dict(batch_size=4, bf16=False, batches=(4,)),
+           "symbolic": dict(batch_size=0, bf16=False, batches=(1, 16)),
+           "bf16": dict(batch_size=4, bf16=True, batches=(4,))}
+EXPORT_ITERS = 20  # forwards a timing takes
+
+
+def _forward_ms(fn, x, iters: int) -> tuple[float, float]:
+    """(card ms, wall ms) a call of ``fn(x)``: CUDA events over ``iters``
+    calls, and the host clock around each call to ``synchronize()``."""
+    import torch
+
+    card = cuda_ms(lambda: fn(x), iters)
+    walls = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn(x)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return card, sum(walls) / iters * 1e3
+
+
+def export_worker(spec_path: str) -> None:
+    """Phase 11's fresh process: loads each artifact through
+    ``export.load_forward``, runs the 16 clouds at each of its batch sizes
+    against the live model of the same weights (at most 1e-6 apart) with K1
+    once and K2 three times a batch and no other kernel, then times the
+    artifacts' and the live model's forwards at b4 and b32 in turns; writes
+    its readings as JSON to the spec's ``out``."""
+    import numpy as np
+    import torch
+
+    from rfnet_tpu_torch import kernels
+    from rfnet_tpu_torch.eval import load_state
+    from rfnet_tpu_torch.export import load_forward
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    dev = torch.device("cuda", 0)
+    parts = torch.from_numpy(np.load(spec["clouds"])).to(dev)
+    n = parts.shape[0]
+    result, forwards, lives = {}, {}, {}
+    for name, art in spec["artifacts"].items():
+        t0 = time.time()
+        forwards[name] = load_forward(art["path"])
+        load_s = time.time() - t0
+        with contextlib.redirect_stdout(io.StringIO()):
+            model = load_state(WEIGHTS, torch.bfloat16 if art["bf16"] else None).to(dev).eval()
+        lives[name] = torch.inference_mode()(lambda x, m=model: m(x).out4)
+        row = {"load_s": load_s}
+        for b in art["batches"]:
+            kernels.reset_launch_counts()
+            outs = [forwards[name](parts[i:i + b]) for i in range(0, n, b)]
+            torch.cuda.synchronize()
+            counts = dict(kernels.launches)
+            want = {k: {"fps": n // b, "nn_coords": 3 * n // b}.get(k, 0) for k in counts}
+            check(counts == want, f"artifact {name} at batch {b}: launches {counts}, expected "
+                  f"{want} (K1 once and K2 three times a batch)")
+            err = max(float((o.float() - lives[name](parts[i:i + b]).float()).abs().max())
+                      for o, i in zip(outs, range(0, n, b)))
+            check(err <= 1e-6, f"artifact {name} at batch {b}: {err} from the live forward")
+            check(all(bool(torch.isfinite(o).all()) and o.shape == (b, 16384, 3) for o in outs),
+                  f"artifact {name} at batch {b}: output shape or values")
+            row[f"b{b}"] = {"max_abs_err": err, "launches": counts}
+        result[name] = row
+    x32 = torch.cat([parts, parts])
+    cases = {"live b4": (lives["b4"], parts[:4]), "artifact b4": (forwards["b4"], parts[:4]),
+             "symbolic b4": (forwards["symbolic"], parts[:4]),
+             "live b32": (lives["symbolic"], x32), "symbolic b32": (forwards["symbolic"], x32)}
+    timings = {label: [] for label in cases}
+    for fn, x in cases.values():
+        fn(x)  # warm
+    for label in list(cases) + list(cases)[::-1]:  # in turns, forth and back
+        timings[label].append(_forward_ms(*cases[label], EXPORT_ITERS))
+    result["timings"] = timings
+    with open(spec["out"], "w") as f:
+        json.dump(result, f)
+
+
+def op_overhead(dev) -> dict:
+    """K1 and K2 at the serving shapes (b4): the wrapper's time through its
+    operator (``rfnet::fps``, ``rfnet::nn_coords``, registered with
+    ``torch.library.Library``), the operator's body called directly, and K1
+    through the same body registered with ``torch.library.custom_op``, in
+    turns; CUDA events over 200 calls each (bound by the host here)."""
+    import numpy as np
+    import torch
+
+    from rfnet_tpu_torch.data.dataset import synthetic_pairs
+    from rfnet_tpu_torch.ops import chamfer, fps
+
+    smoke_fps = torch.library.custom_op("rfnet_smoke::fps", fps._fps_cuda, mutates_args=(),
+                                        device_types="cuda",
+                                        schema="(Tensor xyz, int npoint) -> Tensor")
+    pairs = list(synthetic_pairs(B, seed=7))
+    partial = torch.from_numpy(np.stack([p for _, p, _ in pairs])).to(dev)
+    gt = torch.from_numpy(np.stack([g for _, _, g in pairs])).to(dev)
+    cases = {"K1 (4,3000)->32": {
+        "wrapper": lambda: fps.farthest_point_sample(32, partial),
+        "body": lambda: fps._fps_cuda(partial, 32),
+        "op": lambda: torch.ops.rfnet.fps(partial, 32),
+        "custom_op": lambda: smoke_fps(partial, 32)}}
+    for nq in (64, 1024, 16384):
+        q = gt[:, :nq].contiguous()
+        cases[f"K2 ({B},{nq})x3000"] = {
+            "wrapper": lambda q=q: chamfer.nn_coords(q, partial),
+            "body": lambda q=q: chamfer._nn_coords_cuda(q, partial),
+            "op": lambda q=q: torch.ops.rfnet.nn_coords(q, partial)}
+    out = {}
+    for case, fns in cases.items():
+        ms = {k: [] for k in fns}
+        for k in list(fns) + list(fns)[::-1]:
+            ms[k].append(cuda_ms(fns[k], 200, warmup=5))
+        out[case] = {k: sum(v) / len(v) for k, v in ms.items()}
+        print(f"{case}: ms a call (mean of two in turns) " + ", ".join(
+            f"{k} {v:.4f}" for k, v in out[case].items())
+            + f"; the operator adds {(out[case]['op'] - out[case]['body']) * 1e3:.1f} us"
+            + (f", custom_op {(out[case]['custom_op'] - out[case]['body']) * 1e3:.1f} us"
+               if "custom_op" in out[case] else ""))
+    return out
+
+
+def export_run(dev) -> dict:
+    """Phase 11, export and weights interop, on the converged weights and
+    phase 3's 16 clouds: (1) the weights through a reference TF bundle and
+    back (``export_reference_checkpoint``, the ref-import CLI into a
+    workdir), served by the eval CLI from that directory: the CSV equal to
+    phase 3's row for row; the ``.npz`` writer read back equal; (2) the
+    export CLI's card artifacts (b4, a symbolic batch, ``--bf16`` b4),
+    loaded and checked in a fresh process (``export_worker``); (3) the
+    operators' host cost (``op_overhead``). Returns the b4 artifact's launch
+    counts (the "export" path)."""
+    import numpy as np
+    import torch
+
+    from rfnet_tpu_torch import export, kernels
+    from rfnet_tpu_torch.compat import ref_import
+    from rfnet_tpu_torch.compat.convert import save_npz
+    from rfnet_tpu_torch.data.dataset import synthetic_pairs
+    from rfnet_tpu_torch.eval import load_state
+
+    root = os.path.join(WORK, "export")
+    os.makedirs(root)
+    with contextlib.redirect_stdout(io.StringIO()):
+        model = load_state(WEIGHTS)
+    weights = model.state_dict()
+    t0 = time.time()
+    prefix = os.path.join(root, "ref", "model-105000")
+    ref_import.export_reference_checkpoint(prefix, weights, step=105000)
+    t_bundle = time.time() - t0
+    workdir = os.path.join(root, "workdir")
+    ref_import.main(["--ref_prefix", prefix, "--workdir", workdir])
+    t_import = time.time() - t0 - t_bundle
+    ckpt = torch.load(os.path.join(workdir, "ckpt_105000.pt"), map_location="cpu",
+                      weights_only=True)
+    check(ckpt["step"] == 105000 and all(torch.equal(ckpt["model"][k], v)
+                                         for k, v in weights.items()),
+          "the ref-import CLI's checkpoint is not the converged weights at step 105000")
+    kernels.reset_launch_counts()
+    text = run_eval(["--list_path", os.path.join(WORK, "test.list"), "--data_dir",
+                     os.path.join(WORK, "data"), "--checkpoint", workdir, "--num_gt_points",
+                     "16384", "--plot_freq", "1000", "--batch_size", str(B), "--device", "cuda",
+                     "--results_dir", os.path.join(root, "csv")])
+    check("step 105000" in text and "WARNING" not in text,
+          "the eval CLI did not serve the workdir's checkpoint")
+    want = {k: NUM_SERVE // B * v for k, v in SERVE_LAUNCHES.items()}
+    check(dict(kernels.launches) == want, f"serving the workdir: launches {kernels.launches}")
+    check(read_rows(os.path.join(root, "csv")) == read_rows(os.path.join(WORK, "gpu")),
+          "the CSV served from the TF round trip's workdir differs from phase 3's")
+    save_npz(os.path.join(root, "port.npz"), weights, 105000)
+    with contextlib.redirect_stdout(io.StringIO()):
+        back = load_state(os.path.join(root, "port.npz")).state_dict()
+    check(all(torch.equal(back[k], v) for k, v in weights.items()),
+          "the .npz writer's file does not load back to the same weights")
+    print(f"TF round trip: bundle {os.path.getsize(prefix + '.data-00000-of-00001')} bytes "
+          f"written in {t_bundle:.2f} s, the ref-import CLI {t_import:.2f} s, eval --checkpoint "
+          f"<workdir>: CSV identical to phase 3's row for row; .npz writer read back equal")
+
+    clouds = os.path.join(root, "clouds.npy")
+    np.save(clouds, np.stack([p for _, p, _ in synthetic_pairs(NUM_SERVE, seed=1234)]))
+    spec = {"clouds": clouds, "out": os.path.join(root, "worker.json"), "artifacts": {}}
+    for name, art in EXPORTS.items():
+        path = os.path.join(root, f"{name}.pt2")
+        t0 = time.time()
+        with contextlib.redirect_stdout(io.StringIO()) as buf:
+            export.main(["--checkpoint", WEIGHTS, "--out", path, "--batch_size",
+                         str(art["batch_size"]), "--platforms", "cuda",
+                         *(["--bf16"] if art["bf16"] else [])])
+        print(f"export {name}: {time.time() - t0:.1f} s, {os.path.getsize(path)} bytes; "
+              + buf.getvalue().strip().splitlines()[-1])
+        spec["artifacts"][name] = {"path": path, **art}
+    with open(os.path.join(root, "spec.json"), "w") as f:
+        json.dump(spec, f)
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, "-c", "import sys, chip_smoke; "
+                           "chip_smoke.export_worker(sys.argv[1])",
+                           os.path.join(root, "spec.json")], cwd=HERE, capture_output=True,
+                          text=True, timeout=600)
+    check(proc.returncode == 0, f"the export worker failed:\n{proc.stdout}\n{proc.stderr}")
+    with open(spec["out"]) as f:
+        got = json.load(f)
+    print(f"fresh process: {time.time() - t0:.1f} s")
+    for name in EXPORTS:
+        print(f"artifact {name}: loaded in {got[name]['load_s']:.2f} s; " + "; ".join(
+            f"{b}: max abs diff {r['max_abs_err']} from the live forward, launches "
+            f"fps {r['launches']['fps']}, nn_coords {r['launches']['nn_coords']}"
+            for b, r in got[name].items() if b != "load_s"))
+    for label, runs in got["timings"].items():
+        print(f"forward {label}: card ms " + ", ".join(f"{c:.3f}" for c, _ in runs)
+              + "; wall ms " + ", ".join(f"{w:.3f}" for _, w in runs))
+    op_overhead(dev)
+    return got["b4"]["b4"]["launches"]
+
 
 def main() -> int:
     import torch
@@ -2211,6 +2438,9 @@ def main() -> int:
         mesh_w1_step_ms(dev)
         mesh_counts = mesh_run(dev)
         print(f"phase 10 (data parallelism): {time.time() - t_mesh:.1f} s")
+        t_export = time.time()
+        export_counts = export_run(dev)
+        print(f"phase 11 (export and weights interop): {time.time() - t_export:.1f} s")
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 
@@ -2225,9 +2455,11 @@ def main() -> int:
     by_path = {"serve": serve_counts, "train": train_counts, "lmdb": lmdb_counts,
                "ops": ops_counts, "tile": tile_counts, "preload": preload_counts,
                "online": online_counts, "pipeline": pipeline_counts, "bf16": bf16_counts,
-               "mesh": mesh_counts["mesh"]}
+               "mesh": mesh_counts["mesh"], "export": export_counts}
     for name, (_, _, path) in src.items():
         check(by_path[path][name] > 0, f"{name} was not launched on the {path} path")
+    for name in ("fps", "nn_coords"):
+        check(export_counts[name] > 0, f"{name} was not launched on the export path")
     for name in ("fps", "nn_coords", "nn_dyn", "nn_dense", "nn_grad", "emd_cost"):
         check(all(c[name] > 0 for c in mesh_counts["mesh_ranks"]),
               f"{name} was not launched on every rank of the mesh path")

@@ -3,7 +3,8 @@
 The JAX package's ``rfnet_tpu/data/native.py``, for the port: the C++
 source is compiled with ``g++ -O3 -shared -fPIC`` at first use into
 ``rfnet_tpu_torch/_build/`` (listed in ``.gitignore``), under a name that
-hashes the source, and loaded with ``ctypes``. Nothing is built when this
+hashes the source, and loaded with ``ctypes`` (:func:`build_shared`, which
+``visu.render_balls`` builds its rasteriser with too). Nothing is built when this
 module is imported. A failed build is reported once on stderr, and
 :func:`read_pcd_native` then returns None, so ``pcd_io.read_pcd`` falls back
 to its numpy parser.
@@ -33,14 +34,17 @@ _tried = False
 reads = 0
 
 
-def _build() -> str:
-    """Compile the codec if this source is not built yet; returns the
-    library's path. Raises RuntimeError with the compiler's message."""
-    if not os.path.exists(SOURCE):
-        raise RuntimeError(f"source {SOURCE} not found")
-    with open(SOURCE, "rb") as f:
+def build_shared(source: str, stem: str) -> str:
+    """Compile the C++ ``source`` with ``g++ -O3 -shared -fPIC`` into
+    ``BUILD_DIR/lib<stem>_<hash of the source>.so`` if it is not built yet;
+    returns the library's path. Raises RuntimeError with the compiler's
+    message. Safe when several processes build at once: each compiles in its
+    own temporary directory and renames a whole file into place."""
+    if not os.path.exists(source):
+        raise RuntimeError(f"source {source} not found")
+    with open(source, "rb") as f:
         digest = hashlib.sha1(f.read()).hexdigest()[:16]
-    so = os.path.join(BUILD_DIR, f"libpcdcodec_{digest}.so")
+    so = os.path.join(BUILD_DIR, f"lib{stem}_{digest}.so")
     if os.path.exists(so):
         return so
     compiler = shutil.which("g++")
@@ -50,14 +54,18 @@ def _build() -> str:
     tmp = tempfile.mkdtemp(dir=BUILD_DIR)
     try:
         tmp_so = os.path.join(tmp, "lib.so")
-        res = subprocess.run([compiler, "-O3", "-shared", "-fPIC", "-o", tmp_so, SOURCE],
+        res = subprocess.run([compiler, "-O3", "-shared", "-fPIC", "-o", tmp_so, source],
                              capture_output=True, text=True, timeout=120)
         if res.returncode:
             raise RuntimeError(f"g++ failed:\n{res.stdout}{res.stderr}")
-        os.replace(tmp_so, so)  # atomic: concurrent builders each rename a whole file
+        os.replace(tmp_so, so)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return so
+
+
+def _build() -> str:
+    return build_shared(SOURCE, "pcdcodec")
 
 
 def get_lib() -> ctypes.CDLL | None:

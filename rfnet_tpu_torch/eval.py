@@ -24,9 +24,12 @@ Port of ``rfnet_tpu/eval.py``:
     per-cloud metrics; rank 0 writes ``results.csv`` and prints, each rank
     writes the plots and ``.pcd`` files of its rows.
 
-Weights (``--checkpoint``) come from a ``torch.save``d ``state_dict``
-(``.pt``) or from an ``.npz`` of flat flax params (``{"a/b/leaf": array}``,
-with the training step under ``__step__``), such as the converged
+Weights (``--checkpoint``, default ``./bestrecord`` as in the JAX CLI)
+come from a directory: the trainer's ``bestrecord/`` (its ``model.pt``) or
+its workdir (the ``"model"`` entry of the newest ``ckpt_<step>.pt``); or
+from a file: a trainer checkpoint ``ckpt_<step>.pt``, a ``torch.save``d
+``state_dict`` (``.pt``) or an ``.npz`` of flat flax params (``{"a/b/leaf":
+array}``, with the training step under ``__step__``), such as the converged
 ``weights/rfnet_r4_105000.npz`` that ``tools/export_torch_weights.py``
 writes; legacy shared step biases are upgraded on the way
 (``compat.ckpt_compat``). The model's size is read off the weights. Runs on
@@ -44,9 +47,11 @@ from __future__ import annotations
 import argparse
 import contextlib
 import csv
+import glob
 import importlib.util
 import os
 import queue
+import re
 import threading
 import time
 from collections import deque
@@ -97,19 +102,51 @@ def _load_npz(checkpoint: str, dtype: torch.dtype | None = None) -> RFNet:
     return model
 
 
-def load_state(checkpoint: str, dtype: torch.dtype | None = None) -> RFNet:
-    """The model with weights from ``checkpoint``: a saved state_dict
-    (``.pt``) or an ``.npz`` of flat flax params; its feature MLPs compute
-    in ``dtype`` (None = float32).
+CHECKPOINT_NAME = re.compile(r"ckpt_(\d+)\.pt")  # the trainer's checkpoint files
 
-    When the file is absent, warns and returns the full-size model's random
-    init, drawn from a generator seeded ``RANDOM_INIT_SEED``."""
-    if not os.path.isfile(checkpoint):
-        print(f"WARNING: no checkpoint at {checkpoint}; evaluating random init")
+
+def list_checkpoints(workdir: str) -> list[tuple[int, str]]:
+    """(step, path) of every ``ckpt_<step>.pt`` in ``workdir``, oldest first."""
+    found = []
+    for path in glob.glob(os.path.join(workdir, "ckpt_*.pt")):
+        m = CHECKPOINT_NAME.fullmatch(os.path.basename(path))
+        if m:
+            found.append((int(m.group(1)), path))
+    return sorted(found)
+
+
+def _checkpoint_file(checkpoint: str) -> str | None:
+    """The file that holds ``checkpoint``'s weights: the file itself; for a
+    directory its ``model.pt`` (the trainer's ``bestrecord/``), else its
+    newest ``ckpt_<step>.pt`` (a workdir); None where there is neither."""
+    if os.path.isfile(checkpoint):
+        return checkpoint
+    if not os.path.isdir(checkpoint):
+        return None
+    best = os.path.join(checkpoint, "model.pt")
+    if os.path.isfile(best):
+        return best
+    found = list_checkpoints(checkpoint)
+    return found[-1][1] if found else None
+
+
+def load_state(checkpoint: str, dtype: torch.dtype | None = None) -> RFNet:
+    """The model with weights from ``checkpoint`` (a directory or a file, as
+    the module docstring lists); its feature MLPs compute in ``dtype`` (None
+    = float32).
+
+    Where ``checkpoint`` holds no weights, warns and returns the full-size
+    model's random init, drawn from a generator seeded ``RANDOM_INIT_SEED``."""
+    path = _checkpoint_file(checkpoint)
+    if path is None:
+        print(f"WARNING: no checkpoint under {checkpoint}; evaluating random init")
         return RFNet(generator=torch.Generator().manual_seed(RANDOM_INIT_SEED), dtype=dtype)
-    if checkpoint.endswith(".npz"):
-        return _load_npz(checkpoint, dtype)
-    state_dict = torch.load(checkpoint, map_location="cpu", weights_only=True)
+    if path.endswith(".npz"):
+        return _load_npz(path, dtype)
+    state_dict = torch.load(path, map_location="cpu", weights_only=True)
+    if CHECKPOINT_NAME.fullmatch(os.path.basename(path)):
+        print(f"checkpoint {path}: step {state_dict['step']}")
+        state_dict = state_dict["model"]
     model = _model_for(state_dict, dtype)
     model.load_state_dict(state_dict, strict=True)
     return model
@@ -430,7 +467,7 @@ def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("--list_path", default="../../dense_data/test.list")
     parser.add_argument("--data_dir", default="../../dense_data/test")
-    parser.add_argument("--checkpoint", default="./bestrecord/model.pt")
+    parser.add_argument("--checkpoint", default="./bestrecord")
     parser.add_argument("--results_dir", default="results/recon")
     parser.add_argument("--num_gt_points", type=int, default=16384)
     parser.add_argument("--plot_freq", type=int, default=100)

@@ -12,6 +12,13 @@ Each C entry point takes its pointers and the CUDA stream as ``void*``,
 launches on PyTorch's current stream, does not synchronise, and returns
 ``cudaGetLastError()``; :func:`launch` raises on a non-zero code and only
 then counts the launch in :data:`launches`.
+
+The kernels of the forward (K1 FPS, K2 the merge layer's NN scan) are also
+custom operators, ``rfnet::fps`` and ``rfnet::nn_coords``
+(:func:`define_op`), which their wrappers call for CUDA tensors: through
+them ``torch.export`` records the kernels in an exported program, where it
+cannot trace a ``ctypes`` call. The ops are defined when ``ops.fps`` and
+``ops.chamfer`` are imported; nothing is built then either.
 """
 
 from __future__ import annotations
@@ -72,6 +79,12 @@ launches: dict[str, int] = {name: 0 for name in _SIGNATURES}
 
 _lib = None
 _lib_lock = threading.Lock()
+
+# the namespace of the custom operators (``torch.ops.rfnet``), registered
+# through ``torch.library.Library``: on an H100 machine's host it adds ~5 us
+# a call of K1 at (4,3000)->32 to the body's, ``torch.library.custom_op``
+# ~29 us (chip_smoke.py, op_overhead)
+_OPS = torch.library.Library("rfnet", "DEF")
 
 
 def reset_launch_counts() -> None:
@@ -182,3 +195,15 @@ def launch(name: str, device: torch.device, *args) -> None:
         msg = lib.rfnet_error_string(err).decode()
         raise RuntimeError(f"CUDA kernel rfnet_{name} failed: error {err} ({msg})")
     launches[name] += 1
+
+
+def define_op(schema: str, cuda_impl, fake_impl) -> None:
+    """Define the operator ``rfnet::<schema>``: ``cuda_impl`` runs it on CUDA
+    tensors (it launches the kernel, and only there is the launch counted)
+    and ``fake_impl`` gives its outputs' shapes and dtypes alone, for
+    tracing. It has no CPU kernel: a wrapper runs the plain version for CPU
+    tensors, which traces as ATen ops."""
+    name = schema.split("(", 1)[0]
+    _OPS.define(schema)
+    _OPS.impl(name, cuda_impl, "CUDA")
+    torch.library.register_fake(f"rfnet::{name}", fake_impl, lib=_OPS)

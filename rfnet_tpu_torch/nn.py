@@ -33,6 +33,15 @@ def _xavier_(weight: torch.Tensor, generator: torch.Generator | None) -> None:
         weight.uniform_(-lim, lim, generator=generator)
 
 
+def _cast(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x`` in ``dtype``. Eager ``x.to(dtype)`` of a tensor already in it
+    returns ``x``, but a ``torch.export`` trace records it as two operators
+    (a metadata check and the cast), which an exported forward of the
+    float32 model would run at every layer: the cast is traced only where
+    the dtype changes."""
+    return x if x.dtype == dtype else x.to(dtype)
+
+
 class Dense(nn.Linear):
     """One per-point dense layer (the JAX ``dense``): xavier-uniform weight,
     zero bias, computed in ``dtype``."""
@@ -50,7 +59,7 @@ class Dense(nn.Linear):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         d = self.dtype
-        return F.linear(x.to(d), self.weight.to(d), self.bias.to(d))
+        return F.linear(_cast(x, d), _cast(self.weight, d), _cast(self.bias, d))
 
 
 class StepDense(nn.Module):
@@ -66,7 +75,7 @@ class StepDense(nn.Module):
 
     def forward(self, x: torch.Tensor, step: int) -> torch.Tensor:
         d = self.dtype
-        return F.linear(x.to(d), self.weight.to(d), self.bias[step].to(d))
+        return F.linear(_cast(x, d), _cast(self.weight, d), _cast(self.bias[step], d))
 
 
 class PointMLP(nn.Module):

@@ -8,7 +8,8 @@ exact sorted-space scans in ``ops/chamfer_pruned.py`` (K7) and
 * K2 (``csrc/nn_coords.cu``) — the dense scan of ``e = |t|² − 2·q·t`` with
   strict ``<`` (first tie), returning ``max(e + |q|², 0)``, the argmin and
   the argmin's coordinates. It serves :func:`nearest_neighbor_coords` (the
-  merge layer).
+  merge layer), as the custom operator ``rfnet::nn_coords`` (so an
+  exported forward holds the kernel).
 * K4 (``csrc/nn_dense.cu``) — the same scan without the coordinates. It
   serves :func:`nearest_neighbor` (``zero_groupnear``) and both directions of
   :func:`nn_distance`. K2 and K4 split the targets where the queries are too
@@ -85,6 +86,11 @@ def _sqrt_rn(x: torch.Tensor) -> torch.Tensor:
 
 
 def _chunk(b: int, m: int) -> int:
+    """Queries a chunk of the plain scans. While ``torch.export`` traces, the
+    batch may be symbolic and the chunk may not depend on it: the chunk of
+    one cloud then (a chunk splits queries, so no value changes)."""
+    if torch.compiler.is_exporting():
+        b = 1
     return max(1, _PLAIN_CHUNK_ELEMS // (b * m))
 
 
@@ -195,15 +201,32 @@ def _nn_scan_cuda(name: str, query: torch.Tensor, target: torch.Tensor):
     return _nn_scan_launch(name, query, target, plan)
 
 
+def _nn_coords_cuda(query: torch.Tensor, target: torch.Tensor):
+    """K2 on CUDA tensors: the body of ``rfnet::nn_coords``; its plan is
+    chosen here, at run time, as K1's is."""
+    return _nn_scan_cuda("nn_coords", query.contiguous(), target.contiguous())
+
+
+def _nn_coords_fake(query: torch.Tensor, target: torch.Tensor):
+    b, n, _ = query.shape
+    return (query.new_empty((b, n)), query.new_empty((b, n), dtype=torch.int32),
+            query.new_empty((b, n, 3)))
+
+
+kernels.define_op("nn_coords(Tensor query, Tensor target) -> (Tensor, Tensor, Tensor)",
+                  _nn_coords_cuda, _nn_coords_fake)
+
+
 def nn_coords(query: torch.Tensor, target: torch.Tensor):
-    """K2's wrapper: (dist² (b,n), idx (b,n) int32, target[idx] (b,n,3))."""
+    """K2's wrapper: (dist² (b,n), idx (b,n) int32, target[idx] (b,n,3)),
+    through ``rfnet::nn_coords`` for CUDA tensors."""
     _check_pair(query, target)
     query = query.detach().contiguous()
     target = target.detach().contiguous()
     if not query.is_cuda:
         d, i = _one_sided(query, target)
         return d, i, _gather_rows(target, i)
-    return _nn_scan_cuda("nn_coords", query, target)
+    return torch.ops.rfnet.nn_coords(query, target)
 
 
 def nearest_neighbor_coords(query: torch.Tensor, target: torch.Tensor):

@@ -8,7 +8,8 @@ Semantics of the reference ``FarthestPointSample`` / ``GatherPoint`` ops:
     autograd's scatter-add into the source cloud.
 
 A CUDA tensor goes through kernel K1 (``csrc/fps.cu``), at any number of
-points; a CPU tensor through the plain loop :func:`_fps_plain`, which
+points, as the custom operator ``rfnet::fps`` (so an exported forward holds
+the kernel); a CPU tensor through the plain loop :func:`_fps_plain`, which
 computes the same distances in the same order, so both give identical
 indices.
 """
@@ -90,8 +91,19 @@ def _fps_launch(xyz: torch.Tensor, npoint: int, cluster: int, per_thread: int) -
 
 
 def _fps_cuda(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
+    """K1 on a CUDA tensor: the body of ``rfnet::fps``. The plan reads the
+    batch as a Python int, so it is chosen here, at run time, and never in
+    a traced graph."""
+    xyz = xyz.contiguous()
     b, n, _ = xyz.shape
     return _fps_launch(xyz, npoint, *_fps_plan(b, n, _sm_count(xyz.device)))
+
+
+def _fps_fake(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
+    return xyz.new_empty((xyz.shape[0], npoint), dtype=torch.int32)
+
+
+kernels.define_op("fps(Tensor xyz, int npoint) -> Tensor", _fps_cuda, _fps_fake)
 
 
 def farthest_point_sample(npoint: int, xyz: torch.Tensor) -> torch.Tensor:
@@ -102,7 +114,7 @@ def farthest_point_sample(npoint: int, xyz: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"npoint must be >= 1, got {npoint}")
     xyz = xyz.detach().contiguous()
     if xyz.is_cuda:
-        return _fps_cuda(xyz, npoint)
+        return torch.ops.rfnet.fps(xyz, npoint)
     if xyz.device.type != "cpu":
         raise ValueError(f"unsupported device {xyz.device}")
     return _fps_plain(xyz, npoint)

@@ -57,11 +57,9 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
-import glob
 import json
 import math
 import os
-import re
 import time
 
 import numpy as np
@@ -71,7 +69,7 @@ import torch.distributed as dist
 from rfnet_tpu_torch import losses
 from rfnet_tpu_torch.data import online
 from rfnet_tpu_torch.data.dataset import resample_pcd
-from rfnet_tpu_torch.eval import profile_trace, resolve_device
+from rfnet_tpu_torch.eval import list_checkpoints, profile_trace, resolve_device
 from rfnet_tpu_torch.models import RFNet
 from rfnet_tpu_torch.ops.chamfer import chamfer_means
 from rfnet_tpu_torch.ops.fps import farthest_point_sample, gather_point
@@ -385,15 +383,6 @@ def _tb_writer(logdir: str):
     return SummaryWriter(logdir)
 
 
-def _checkpoints(workdir: str) -> list[tuple[int, str]]:
-    found = []
-    for path in glob.glob(os.path.join(workdir, "ckpt_*.pt")):
-        m = re.fullmatch(r"ckpt_(\d+)\.pt", os.path.basename(path))
-        if m:
-            found.append((int(m.group(1)), path))
-    return sorted(found)
-
-
 def _save_atomic(obj, path: str) -> None:
     tmp = path + ".tmp"
     torch.save(obj, tmp)
@@ -406,14 +395,14 @@ def save_checkpoint(state: TrainState, workdir: str, max_to_keep: int) -> str:
     path = os.path.join(workdir, f"ckpt_{state.step}.pt")
     _save_atomic({"model": state.model.state_dict(),
                   "optimizer": state.optimizer.state_dict(), "step": state.step}, path)
-    for _, old in _checkpoints(workdir)[:-max_to_keep]:
+    for _, old in list_checkpoints(workdir)[:-max_to_keep]:
         os.remove(old)
     return path
 
 
 def restore_if_available(state: TrainState, workdir: str) -> bool:
     """Load the latest checkpoint of ``workdir`` into ``state``, if any."""
-    found = _checkpoints(workdir)
+    found = list_checkpoints(workdir)
     if not found:
         return False
     step, path = found[-1]

@@ -771,3 +771,41 @@ def test_nn_dyn_kernel_tiled_cases_equal_plain_and_k7(cuda, case):
     dd, di = chamfer_pruned.nn_pruned(qs.to(cuda), ts.to(cuda))
     torch.testing.assert_close(kd, dd, rtol=0, atol=0)
     torch.testing.assert_close(ki, di, rtol=0, atol=0)
+
+
+def test_custom_ops_pass_opcheck(cuda):
+    """``rfnet::fps`` and ``rfnet::nn_coords`` (K1, K2 as operators) pass
+    ``torch.library.opcheck`` on CUDA inputs: schema, fake implementation
+    against the kernel's outputs, autograd registration, AOT dispatch."""
+    x, t = (a.to(cuda) for a in _clouds(9, (2, 3000, 3), (2, 300, 3)))
+    for op, args in ((torch.ops.rfnet.fps.default, (x, 32)),
+                     (torch.ops.rfnet.nn_coords.default, (t, x))):
+        assert set(torch.library.opcheck(op, args).values()) == {"SUCCESS"}
+
+
+@pytest.mark.parametrize("batch_size", [2, None])
+def test_exported_forward_runs_the_kernels(cuda, tmp_path, batch_size):
+    """A card artifact of the tiny model (static batch 2, and symbolic)
+    equals the live forward bit for bit and launches K1 once and K2 three
+    times a call."""
+    from rfnet_tpu_torch import export
+    from rfnet_tpu_torch.models import RFNet
+
+    model = RFNet(n_seed=4, up_ratio=4, generator=torch.Generator().manual_seed(1))
+    model = model.to(cuda).eval()
+    exported = export.export_forward(model, batch_size, innum=3000)
+    ops = [str(n.target) for n in exported.graph.nodes if str(n.target).startswith("rfnet.")]
+    assert ops == ["rfnet.fps.default"] + ["rfnet.nn_coords.default"] * 3
+    path = str(tmp_path / "card.pt2")
+    export.save_exported(exported, path)
+    served = export.load_forward(path)
+    for b in ((2,) if batch_size else (1, 3)):
+        (x,) = _clouds(b, (b, 3000, 3))
+        x = x.to(cuda)
+        with torch.no_grad():
+            want = model(x).out4
+        kernels.reset_launch_counts()
+        got = served(x)
+        torch.cuda.synchronize()
+        assert (kernels.launches["fps"], kernels.launches["nn_coords"]) == (1, 3)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
