@@ -114,11 +114,23 @@
    the export and load seconds and the artifacts' bytes; K1's and K2's
    wrapper time through their operators against the operators' bodies
    called directly (and K1 through ``torch.library.custom_op``);
-12. prints whether the native .pcd codec was built and how often it read,
+12. the run-level tools at full width: ``tools/protocol_drive_torch.py
+   --synthetic`` (4 b32 steps on batches made on the card, 16 held-out
+   clouds scored at steps 2 and 4, the eval CLI on the best record), again
+   with ``--skip_train`` and its own CSV as the baseline (compare exits 0);
+   ``tools/make_synthetic_evalset_torch.py`` dumps the 16 held-out clouds
+   and the eval CLI serves them with the run's ``bestrecord/`` (mean cd the
+   log's best held-out cd to 1e-5 relative); ``tools/eval_curve_torch.py``
+   over the workdir (held-out column = the log's ``eval @ N`` lines) and on
+   the converged weights over run_r4's 64 held-out clouds (mean cd within
+   1 % of run_r4's 0.023168); the drive's stages count their launches
+   through ``kernels.LAUNCH_LOG_ENV``, and the phase's counts are checked
+   exactly ("protocol" in ``launches_by_path``);
+13. prints whether the native .pcd codec was built and how often it read,
    the per-kernel JSON line (with the converged b32 step's times; each
    kernel's launches on every path, the preload, online, pipeline, bf16,
-   mesh and export ones among them; "mesh" is rank 0's of the W=2 host-path
-   run, "export" the b4 artifact's 4 batches), then
+   mesh, export and protocol ones among them; "mesh" is rank 0's of the W=2
+   host-path run, "export" the b4 artifact's 4 batches), then
    ``{"ok": true, "device": ...}``.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -810,28 +822,6 @@ def cross_check_step(dev):
           f"{worst[0]:.3g}")
 
 
-def write_evalset(root: str, num: int) -> list[str]:
-    """``num`` synthetic clouds laid out like the PCN test set (8 synsets),
-    as ``tools/make_synthetic_evalset.py --pcn_layout`` dumps them: the .pcd
-    files under ``root/data`` and their ids in ``root/test.list``."""
-    from rfnet_tpu_torch.data.dataset import synthetic_pairs
-    from rfnet_tpu_torch.data.pcd_io import save_pcd
-
-    synsets = ("02691156", "02933112", "02958343", "03001627",
-               "03636649", "04256520", "04379243", "04530566")
-    ids = []
-    for i, (mid, part, gt) in enumerate(synthetic_pairs(num, seed=1234)):
-        mid = f"{synsets[i % len(synsets)]}/{mid.split('/')[-1]}"
-        for kind, cloud in (("partial", part), ("complete", gt)):
-            path = os.path.join(root, "data", kind, mid + ".pcd")
-            os.makedirs(os.path.dirname(path), exist_ok=True)
-            save_pcd(path, cloud)
-        ids.append(mid)
-    with open(os.path.join(root, "test.list"), "w") as f:
-        f.write("\n".join(ids))
-    return ids
-
-
 def run_eval(argv: list[str]) -> str:
     from rfnet_tpu_torch import eval as eval_mod
 
@@ -884,8 +874,9 @@ def serve(dev):
     from rfnet_tpu_torch import kernels
     from rfnet_tpu_torch.data import native
     from rfnet_tpu_torch.data.dataset import synthetic_pairs
+    from tools.make_synthetic_evalset_torch import write_evalset
 
-    ids = write_evalset(WORK, NUM_SERVE)
+    ids = write_evalset(WORK, NUM_SERVE, pcn_layout=True)
     # the 16 clouds are the first of the 64-cloud held-out set the TPU CSV scored
     for (_, p16, g16), (_, p64, g64) in zip(synthetic_pairs(NUM_SERVE, seed=1234),
                                             synthetic_pairs(64, seed=1234)):
@@ -2390,6 +2381,118 @@ def export_run(dev) -> dict:
     return got["b4"]["b4"]["launches"]
 
 
+PROTOCOL_VAL = 16  # held-out clouds of phase 12's training run
+CONVERGED_NUM = 64  # held-out clouds of run_r4's evals
+# run_r4's held-out CD at step 105000 (its best record) and the parity band
+# of tools/compare_results.py's default
+CONVERGED_RECORD = os.path.join(HERE, "run_r4", "bestrecord", "best.json")
+PARITY_BAND = 0.01
+
+
+def drive(argv: list[str]) -> str:
+    """``tools/protocol_drive_torch.py`` in its own interpreter, as a user
+    runs it; fails unless it exits 0. Returns its output, the stages'
+    included."""
+    proc = subprocess.run([sys.executable, os.path.join(HERE, "tools", "protocol_drive_torch.py"),
+                           *argv], cwd=HERE, capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, f"protocol_drive_torch {argv} failed:\n{proc.stdout[-3000:]}\n"
+          f"{proc.stderr[-3000:]}")
+    return proc.stdout
+
+
+def protocol_run(dev) -> dict:
+    """Phase 12, the run-level tools at full width: (1) the parity drill
+    ``tools/protocol_drive_torch.py --synthetic`` (4 b32 steps on batches
+    made on the card, 16 held-out clouds scored at steps 2 and 4, the best
+    record, the eval CLI on it over the 3-model fixture), then again with
+    ``--skip_train`` and its own CSV as the baseline (compare exits 0); (2)
+    ``tools/make_synthetic_evalset_torch.py`` dumps the 16 held-out clouds
+    and the eval CLI serves them with the run's ``bestrecord/``: the CSV's
+    mean cd is the log's best held-out cd to 1e-5 relative; (3)
+    ``tools/eval_curve_torch.py`` over the workdir: the held-out column is
+    the log's ``eval @ N`` lines; (4) the same tool on the converged weights
+    and run_r4's 64 held-out clouds: within 1 % of run_r4's record. Returns
+    the launch counts of all of it, the drive's stages' read from
+    ``kernels.LAUNCH_LOG_ENV``."""
+    from rfnet_tpu_torch import kernels
+    from tools import eval_curve_torch, make_synthetic_evalset_torch
+    from tools.protocol_drive_torch import FIXTURE_IDS
+
+    root = os.path.join(WORK, "protocol")
+    workdir = os.path.join(root, "run", "modelvv_recon")
+    log_path = os.path.join(root, "launches.jsonl")
+    os.makedirs(root)
+    kernels.reset_launch_counts()
+    os.environ[kernels.LAUNCH_LOG_ENV] = log_path
+    try:
+        t0 = time.time()
+        out = drive(["--synthetic", "--steps", "4", "--ckpt_every", "2", "--workdir", workdir,
+                     "--results_dir", os.path.join(root, "results"), "--train_extra",
+                     "--synthetic_online", "--synthetic_val_size", str(PROTOCOL_VAL)])
+        t_drive = time.time() - t0
+        drill = drive(["--synthetic", "--skip_train", "--workdir", workdir,
+                       "--results_dir", os.path.join(root, "results2"),
+                       "--baseline_csv", os.path.join(root, "results", "results.csv")])
+    finally:
+        del os.environ[kernels.LAUNCH_LOG_ENV]
+    check("PARITY" in drill, "the drive's compare stage did not find its own CSV in the band")
+    check(read_rows(os.path.join(root, "results")) == read_rows(os.path.join(root, "results2")),
+          "two evals of one best record over one fixture differ")
+    evals = {int(m.group(1)): m.group(2)
+             for m in re.finditer(r"eval @ (\d+): mean cd ([0-9.]+)", out)}
+    check(sorted(evals) == [2, 4], f"the drive's training log has evals at {sorted(evals)}")
+    with open(os.path.join(root, "run", "bestrecord", "best.json")) as f:
+        best = json.load(f)
+    check(f"{best['cd']:.6f}" == evals[best["step"]], f"best.json {best} against the log {evals}")
+    staged = read_jsonl(log_path)
+    check(len(staged) == 3, f"{len(staged)} stage processes counted launches, expected 3")
+
+    evalset = os.path.join(root, "evalset")
+    make_synthetic_evalset_torch.main(["--out", evalset, "--num", str(PROTOCOL_VAL)])
+    run_eval(["--list_path", os.path.join(evalset, "test.list"), "--data_dir",
+              os.path.join(evalset, "data"), "--checkpoint", os.path.join(root, "run", "bestrecord"),
+              "--results_dir", os.path.join(root, "served"), "--batch_size", str(B),
+              "--plot_freq", "1000", "--device", "cuda"])
+    served = read_rows(os.path.join(root, "served"))
+    served_cd = sum(float(r[1]) for r in served) / len(served)
+    rel = abs(served_cd - best["cd"]) / best["cd"]
+    check(len(served) == PROTOCOL_VAL and rel <= 1e-5,
+          f"serving the dump with the best record: mean cd {served_cd} against the log's "
+          f"{best['cd']} (rel {rel:.3g}, limit 1e-5)")
+
+    curve = eval_curve_torch.main([workdir, str(PROTOCOL_VAL)])
+    check([r["step"] for r in curve] == [2, 4]
+          and all(f"{r['heldout_cd']:.6f}" == evals[r["step"]] for r in curve),
+          f"eval_curve_torch's held-out column {curve} is not the log's {evals}")
+    with open(CONVERGED_RECORD) as f:
+        record = json.load(f)
+    (conv,) = eval_curve_torch.main([WEIGHTS, str(CONVERGED_NUM)])
+    conv_rel = (conv["heldout_cd"] - record["cd"]) / record["cd"]
+    check(conv["step"] == record["step"] and abs(conv_rel) <= PARITY_BAND,
+          f"the converged weights on the {CONVERGED_NUM} held-out clouds: cd "
+          f"{conv['heldout_cd']} against run_r4's {record['cd']} (rel {conv_rel:.3g})")
+
+    counts = dict(kernels.launches)
+    for line in staged:
+        for k, v in line["launches"].items():
+            counts[k] += v
+    batches = PROTOCOL_VAL // 4
+    # train: 4 steps, 2 evals; eval_curve: 2 checkpoints and the converged
+    # weights, each on two sets; the fixture served twice at batch 1
+    want = expected_launches(4, 2 * batches + 2 * 2 * batches + 2 * CONVERGED_NUM // 4)
+    want = {k: v + (2 * len(FIXTURE_IDS) + PROTOCOL_VAL // B) * SERVE_LAUNCHES[k]
+            for k, v in want.items()}
+    check(counts == want, f"protocol launch counts {counts}, expected {want}")
+    print(f"protocol: the drive (train 4 steps, eval, compare) {t_drive:.1f} s; served the dump "
+          f"of {PROTOCOL_VAL} held-out clouds with the best record (step {best['step']}): mean cd "
+          f"{served_cd:.8f} against the log's {best['cd']:.8f} (rel {rel:.3g}); eval_curve "
+          f"held-out {[round(r['heldout_cd'], 6) for r in curve]} = the log's; converged "
+          f"weights on {CONVERGED_NUM} held-out clouds: cd {conv['heldout_cd']:.6f} (in-sample "
+          f"{conv['in_cd']:.6f}) against run_r4's {record['cd']:.6f} ({100 * conv_rel:+.3f} %); "
+          f"launches {counts}")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -2441,6 +2544,9 @@ def main() -> int:
         t_export = time.time()
         export_counts = export_run(dev)
         print(f"phase 11 (export and weights interop): {time.time() - t_export:.1f} s")
+        t_protocol = time.time()
+        protocol_counts = protocol_run(dev)
+        print(f"phase 12 (protocol): {time.time() - t_protocol:.1f} s")
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 
@@ -2455,12 +2561,13 @@ def main() -> int:
     by_path = {"serve": serve_counts, "train": train_counts, "lmdb": lmdb_counts,
                "ops": ops_counts, "tile": tile_counts, "preload": preload_counts,
                "online": online_counts, "pipeline": pipeline_counts, "bf16": bf16_counts,
-               "mesh": mesh_counts["mesh"], "export": export_counts}
+               "mesh": mesh_counts["mesh"], "export": export_counts, "protocol": protocol_counts}
     for name, (_, _, path) in src.items():
         check(by_path[path][name] > 0, f"{name} was not launched on the {path} path")
     for name in ("fps", "nn_coords"):
         check(export_counts[name] > 0, f"{name} was not launched on the export path")
     for name in ("fps", "nn_coords", "nn_dyn", "nn_dense", "nn_grad", "emd_cost"):
+        check(protocol_counts[name] > 0, f"{name} was not launched on the protocol path")
         check(all(c[name] > 0 for c in mesh_counts["mesh_ranks"]),
               f"{name} was not launched on every rank of the mesh path")
     line = {"kernels": [

@@ -19,16 +19,25 @@ custom operators, ``rfnet::fps`` and ``rfnet::nn_coords``
 them ``torch.export`` records the kernels in an exported program, where it
 cannot trace a ``ctypes`` call. The ops are defined when ``ops.fps`` and
 ``ops.chamfer`` are imported; nothing is built then either.
+
+Where the environment names a file in ``RFNET_LAUNCH_LOG``, each process
+that imports this module appends its :data:`launches` to it at exit, one
+JSON line (``pid``, ``argv``, ``launches``): how a caller counts the
+launches of CLI runs in other processes (``tools/protocol_drive_torch.py``'s
+stages).
 """
 
 from __future__ import annotations
 
+import atexit
 import ctypes
 import glob
 import hashlib
+import json
 import os
 import shutil
 import subprocess
+import sys
 import tempfile
 import threading
 
@@ -90,6 +99,18 @@ _OPS = torch.library.Library("rfnet", "DEF")
 def reset_launch_counts() -> None:
     for name in launches:
         launches[name] = 0
+
+
+LAUNCH_LOG_ENV = "RFNET_LAUNCH_LOG"
+
+
+def _append_launch_log(path: str) -> None:
+    with open(path, "a") as f:
+        f.write(json.dumps({"pid": os.getpid(), "argv": sys.argv, "launches": launches}) + "\n")
+
+
+if os.environ.get(LAUNCH_LOG_ENV):
+    atexit.register(_append_launch_log, os.environ[LAUNCH_LOG_ENV])
 
 
 def _nvcc() -> str:

@@ -5,14 +5,15 @@ of the synchronous path against ``--pipeline``, in float32 and ``--bf16``.
     python3 tools/time_torch_serving.py [--num 64] [--batch 4] [--rounds 2]
 
 Writes the first ``--num`` clouds of the held-out synthetic set in the PCN
-layout (``chip_smoke.write_evalset``), then serves them with the converged
-weights ``weights/rfnet_r4_105000.npz`` through ``rfnet_tpu_torch.eval.main``
-on the card, each round in turns (sync, pipeline, pipeline, sync), for
-float32 and for ``--bf16``, and prints every run's "Average time" (models
-0-9 excluded as warm-up; sync: the forward to ``synchronize()`` per cloud;
-pipeline: the amortized wall time per cloud between read-backs) and the
-wall time of the whole run, with the card's name and power limit. Every run
-must write the same CSV as the first run of its dtype. Imports no JAX.
+layout (``tools/make_synthetic_evalset_torch.py``), then serves them with
+the converged weights ``weights/rfnet_r4_105000.npz`` through
+``rfnet_tpu_torch.eval.main`` on the card, each round in turns (sync,
+pipeline, pipeline, sync), for float32 and for ``--bf16``, and prints
+every run's "Average time" (models 0-9 excluded as warm-up; sync: the
+forward to ``synchronize()`` per cloud; pipeline: the amortized wall time
+per cloud between read-backs) and the wall time of the whole run, with the
+card's name and power limit. Every run must write the same CSV as the
+first run of its dtype. Imports no JAX.
 Needs a CUDA card; fails without one.
 """
 
@@ -47,13 +48,14 @@ def main(argv=None) -> int:
         return 1
     import chip_smoke
     from rfnet_tpu_torch import eval as eval_mod
+    from tools.make_synthetic_evalset_torch import write_evalset
 
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip())
     tmp = tempfile.mkdtemp()
     try:
-        chip_smoke.write_evalset(tmp, args.num)
+        write_evalset(tmp, args.num, pcn_layout=True)
         common = ["--list_path", os.path.join(tmp, "test.list"), "--data_dir",
                   os.path.join(tmp, "data"), "--checkpoint", chip_smoke.WEIGHTS,
                   "--plot_freq", "1000000", "--batch_size", str(args.batch), "--device", "cuda"]
