@@ -126,11 +126,20 @@
    1 % of run_r4's 0.023168); the drive's stages count their launches
    through ``kernels.LAUNCH_LOG_ENV``, and the phase's counts are checked
    exactly ("protocol" in ``launches_by_path``);
-13. prints whether the native .pcd codec was built and how often it read,
+13. the measurement entry points at full width, each in its own
+   interpreter: ``bench_torch.py`` (one JSON line: the card's name and
+   power limit, every breakdown key, a positive headline, no batch out of
+   memory, the forward's matmul FLOPs equal to the layer closed form and
+   the kernels' to ``_kernel_train_flops``), ``tools/verify_onchip_torch.py``
+   (every one of its 15 checks ok) and each profiler once with ``--iters
+   3``; the launches of the first two counted through
+   ``kernels.LAUNCH_LOG_ENV`` and checked exactly ("bench" and "verify" in
+   ``launches_by_path``);
+14. prints whether the native .pcd codec was built and how often it read,
    the per-kernel JSON line (with the converged b32 step's times; each
    kernel's launches on every path, the preload, online, pipeline, bf16,
-   mesh, export and protocol ones among them; "mesh" is rank 0's of the W=2
-   host-path run, "export" the b4 artifact's 4 batches), then
+   mesh, export, protocol, bench and verify ones among them; "mesh" is rank
+   0's of the W=2 host-path run, "export" the b4 artifact's 4 batches), then
    ``{"ok": true, "device": ...}``.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -2381,6 +2390,7 @@ def export_run(dev) -> dict:
     return got["b4"]["b4"]["launches"]
 
 
+DRIVE = os.path.join("tools", "protocol_drive_torch.py")
 PROTOCOL_VAL = 16  # held-out clouds of phase 12's training run
 CONVERGED_NUM = 64  # held-out clouds of run_r4's evals
 # run_r4's held-out CD at step 105000 (its best record) and the parity band
@@ -2389,15 +2399,25 @@ CONVERGED_RECORD = os.path.join(HERE, "run_r4", "bestrecord", "best.json")
 PARITY_BAND = 0.01
 
 
-def drive(argv: list[str]) -> str:
-    """``tools/protocol_drive_torch.py`` in its own interpreter, as a user
-    runs it; fails unless it exits 0. Returns its output, the stages'
-    included."""
-    proc = subprocess.run([sys.executable, os.path.join(HERE, "tools", "protocol_drive_torch.py"),
-                           *argv], cwd=HERE, capture_output=True, text=True, timeout=600)
-    check(proc.returncode == 0, f"protocol_drive_torch {argv} failed:\n{proc.stdout[-3000:]}\n"
-          f"{proc.stderr[-3000:]}")
+def run_tool(argv: list[str], log: str, timeout: float = 600) -> str:
+    """A script of the repository in its own interpreter, as a user runs
+    it, its launches appended to ``log``; fails unless it exits 0. Returns
+    its standard output."""
+    from rfnet_tpu_torch import kernels
+
+    proc = subprocess.run([sys.executable, *argv], cwd=HERE, capture_output=True, text=True,
+                          timeout=timeout, env={**os.environ, kernels.LAUNCH_LOG_ENV: log})
+    check(proc.returncode == 0, f"{argv} failed:\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
     return proc.stdout
+
+
+def logged_launches(log: str) -> dict:
+    """The launches the processes that wrote ``log`` made, summed."""
+    counts = {k: 0 for k in STEP_LAUNCHES}
+    for line in read_jsonl(log):
+        for k, v in line["launches"].items():
+            counts[k] += v
+    return counts
 
 
 def protocol_run(dev) -> dict:
@@ -2423,18 +2443,14 @@ def protocol_run(dev) -> dict:
     log_path = os.path.join(root, "launches.jsonl")
     os.makedirs(root)
     kernels.reset_launch_counts()
-    os.environ[kernels.LAUNCH_LOG_ENV] = log_path
-    try:
-        t0 = time.time()
-        out = drive(["--synthetic", "--steps", "4", "--ckpt_every", "2", "--workdir", workdir,
-                     "--results_dir", os.path.join(root, "results"), "--train_extra",
-                     "--synthetic_online", "--synthetic_val_size", str(PROTOCOL_VAL)])
-        t_drive = time.time() - t0
-        drill = drive(["--synthetic", "--skip_train", "--workdir", workdir,
-                       "--results_dir", os.path.join(root, "results2"),
-                       "--baseline_csv", os.path.join(root, "results", "results.csv")])
-    finally:
-        del os.environ[kernels.LAUNCH_LOG_ENV]
+    t0 = time.time()
+    out = run_tool([DRIVE, "--synthetic", "--steps", "4", "--ckpt_every", "2", "--workdir",
+                    workdir, "--results_dir", os.path.join(root, "results"), "--train_extra",
+                    "--synthetic_online", "--synthetic_val_size", str(PROTOCOL_VAL)], log_path)
+    t_drive = time.time() - t0
+    drill = run_tool([DRIVE, "--synthetic", "--skip_train", "--workdir", workdir,
+                      "--results_dir", os.path.join(root, "results2"),
+                      "--baseline_csv", os.path.join(root, "results", "results.csv")], log_path)
     check("PARITY" in drill, "the drive's compare stage did not find its own CSV in the band")
     check(read_rows(os.path.join(root, "results")) == read_rows(os.path.join(root, "results2")),
           "two evals of one best record over one fixture differ")
@@ -2444,8 +2460,8 @@ def protocol_run(dev) -> dict:
     with open(os.path.join(root, "run", "bestrecord", "best.json")) as f:
         best = json.load(f)
     check(f"{best['cd']:.6f}" == evals[best["step"]], f"best.json {best} against the log {evals}")
-    staged = read_jsonl(log_path)
-    check(len(staged) == 3, f"{len(staged)} stage processes counted launches, expected 3")
+    staged = len(read_jsonl(log_path))
+    check(staged == 3, f"{staged} stage processes counted launches, expected 3")
 
     evalset = os.path.join(root, "evalset")
     make_synthetic_evalset_torch.main(["--out", evalset, "--num", str(PROTOCOL_VAL)])
@@ -2472,10 +2488,7 @@ def protocol_run(dev) -> dict:
           f"the converged weights on the {CONVERGED_NUM} held-out clouds: cd "
           f"{conv['heldout_cd']} against run_r4's {record['cd']} (rel {conv_rel:.3g})")
 
-    counts = dict(kernels.launches)
-    for line in staged:
-        for k, v in line["launches"].items():
-            counts[k] += v
+    counts = {k: v + kernels.launches[k] for k, v in logged_launches(log_path).items()}
     batches = PROTOCOL_VAL // 4
     # train: 4 steps, 2 evals; eval_curve: 2 checkpoints and the converged
     # weights, each on two sets; the fixture served twice at batch 1
@@ -2491,6 +2504,123 @@ def protocol_run(dev) -> dict:
           f"{conv['in_cd']:.6f}) against run_r4's {record['cd']:.6f} ({100 * conv_rel:+.3f} %); "
           f"launches {counts}")
     return counts
+
+
+# launches of one forward: K1 the model's FPS, K2 its three merges
+FORWARD_LAUNCHES = {"fps": 1, "nn_coords": 3}
+# launches of tools/verify_onchip_torch.py's full sweep: K4 in nn_distance
+# (2), the three sorted checks (3 each) and the coordinates check (1); K3 in
+# its check (3) and the backward check (2 for the indices, 2 in the
+# forward); K5 twice there; K1 in its check; K2 in its check; K6 in the two
+# EMD checks; the export round trip's two forwards; the model check's
+# forward and 3 train steps
+VERIFY_LAUNCHES = {k: v + 3 * FORWARD_LAUNCHES.get(k, 0) + 3 * STEP_LAUNCHES[k]
+                   for k, v in {"fps": 1, "nn_coords": 1, "nn_dyn": 7, "nn_dense": 12,
+                                "nn_grad": 2, "emd_cost": 2, "nn_pruned": 3,
+                                "nn_tile": 3}.items()}
+VERIFY_CHECKS = 15
+# bench.py's _component_breakdown keys, and those bench_torch.py adds; the
+# sweep's keys besides (fwd_[bf16_]b<N>_ms, _clouds_per_sec, _peak_gb)
+BENCH_KEYS = (
+    "fwd_b32_ms", "cd34_fb_b32_ms", "cd34_fb_real_b32_ms", "emd_fb_b32_ms", "recd_fb_b32_ms",
+    "fps_pyramids_b32_ms", "eval_emd_16k_b4_ms", "train_step_b32_ms", "cd34_fb_indist_b32_ms",
+    "train_step_indist_b32_ms", "train_gflops_per_cloud", "train_achieved_tflops",
+    "train_mfu_vs_h100_fp32_peak67", "headline_batch", "fwd_gflops_per_cloud",
+    "achieved_tflops", "mfu_vs_h100_fp32_peak67", "roofline", "train_matmul_flops",
+    "train_kernel_flops", "fwd_scan_gflops_per_cloud", "fwd_activation_gb_per_cloud",
+    "bf16_headline_batch", "bf16_achieved_tflops", "mfu_vs_h100_bf16_peak989", "roofline_bf16")
+
+
+def bench_launches() -> dict:
+    """The launches ``bench_torch.py`` makes at full width, from its
+    constants: the two sweeps' forwards (a checked one, timeit's first, its
+    warm-ups and the timed ones a batch), the breakdown's components (a
+    first call, one warm-up, the timed ones each), the model's outputs for
+    the two cd34 regimes, the forward and the train step FlopCounterMode
+    counts."""
+    import bench_torch
+
+    calls = 2 + bench_torch.BREAKDOWN_ITERS
+    forwards = 2 * sum(2 + bench_torch.SWEEP_WARMUPS + it for _, it in bench_torch.SWEEP)
+    forwards += calls + 2 + 1
+    steps = 2 * calls + 1
+    want = {k: steps * v + forwards * FORWARD_LAUNCHES.get(k, 0)
+            for k, v in STEP_LAUNCHES.items()}
+    # cd34 on three regimes and re_chamfer: K3 both ways, K5 for the outputs
+    want["nn_dyn"] += 4 * calls * 2
+    want["nn_grad"] += 4 * calls
+    want["fps"] += 2 * calls  # the two pyramids
+    want["emd_cost"] += calls  # the eval EMD
+    return want
+
+
+def measure_run(smi: str) -> tuple[dict, dict]:
+    """Phase 13, the measurement entry points at full width: (1)
+    ``bench_torch.py`` prints one JSON line on the card named by
+    ``nvidia-smi`` (``smi``), with every breakdown key, a positive headline,
+    no batch out of memory, the forward's matmul FLOPs equal to the layer
+    closed form and the kernels' to ``_kernel_train_flops``; (2)
+    ``tools/verify_onchip_torch.py`` passes all its checks; (3) each profiler
+    runs once. Returns the launches of (1) and (2), checked exactly."""
+    import bench_torch
+
+    from rfnet_tpu_torch.models import RFNet
+    from rfnet_tpu_torch.train import TrainConfig
+
+    root = os.path.join(WORK, "measure")
+    os.makedirs(root)
+    t0 = time.time()
+    bench_log = os.path.join(root, "bench.jsonl")
+    lines = run_tool(["bench_torch.py"], bench_log).strip().splitlines()
+    t_bench = time.time() - t0
+    check(len(lines) == 1, f"bench_torch.py printed {len(lines)} lines on stdout, not one")
+    line = json.loads(lines[0])
+    br = line["breakdown"]
+    name, limit = (v.strip() for v in smi.rsplit(",", 1))
+    check(line["device"] == {"name": name, "power_limit_w": float(limit.split()[0]),
+                             "count": 1}, f"bench_torch.py's device {line['device']} on {smi}")
+    check(line["metric"] == bench_torch.METRIC and math.isfinite(line["value"])
+          and line["value"] > 0, f"bench_torch.py's headline {line['value']}")
+    sweep = [f"fwd_{t}b{b}_{k}" for t in ("", "bf16_") for b, _ in bench_torch.SWEEP
+             for k in ("ms", "clouds_per_sec", "peak_gb")]
+    missing = [k for k in (*BENCH_KEYS, *sweep) if k not in br]
+    check(not missing, f"bench_torch.py's breakdown lacks {missing}")
+    check(not [k for k in br if "oom" in k], f"a batch of the sweep ran out of memory: {br}")
+    mm, _ = bench_torch.forward_layer_costs(RFNet(), TrainConfig().innum)
+    b = bench_torch.BREAKDOWN_BATCH
+    check(br["fwd_gflops_per_cloud"] == mm / 1e9,
+          f"forward matmul {br['fwd_gflops_per_cloud']} GFLOP a cloud, closed form {mm / 1e9}")
+    check(br["train_kernel_flops"] == bench_torch._kernel_train_flops(b, TrainConfig()),
+          f"kernel FLOPs of a step {br['train_kernel_flops']}")
+    check(br["train_matmul_flops"] >= 2 * b * mm,
+          f"a b{b} step's matmul FLOPs {br['train_matmul_flops']} < twice its forward's")
+    bench_counts = logged_launches(bench_log)
+    check(bench_counts == bench_launches(),
+          f"bench launch counts {bench_counts}, expected {bench_launches()}")
+    print(f"bench_torch.py ({t_bench:.1f} s): {json.dumps(line)}")
+
+    t0 = time.time()
+    verify_log = os.path.join(root, "verify.jsonl")
+    out = os.path.join(root, "onchip.json")
+    run_tool(["tools/verify_onchip_torch.py", "--out", out], verify_log)
+    with open(out) as f:
+        artifact = json.load(f)
+    checks = artifact["checks"]
+    check(artifact["ok"] and len(checks) == VERIFY_CHECKS and all(c["ok"] for c in checks.values()),
+          f"verify_onchip_torch.py: {checks}")
+    check(artifact["device"]["name"] == name, f"verify's device {artifact['device']}")
+    verify_counts = logged_launches(verify_log)
+    check(verify_counts == VERIFY_LAUNCHES,
+          f"verify launch counts {verify_counts}, expected {VERIFY_LAUNCHES}")
+    print(f"verify_onchip_torch.py ({time.time() - t0:.1f} s): {len(checks)} checks ok: "
+          + "; ".join(f"{k} {v['seconds']} s" for k, v in checks.items()))
+
+    for script in ("tools/profile_forward_torch.py", "tools/profile_trainstep_torch.py"):
+        t0 = time.time()
+        text = run_tool([script, "--iters", "3"], os.path.join(root, "profile.jsonl"))
+        print(f"{script} --iters 3 ({time.time() - t0:.1f} s): "
+              + "; ".join(" ".join(ln.split()) for ln in text.strip().splitlines()[1:]))
+    return bench_counts, verify_counts
 
 
 def main() -> int:
@@ -2547,6 +2677,9 @@ def main() -> int:
         t_protocol = time.time()
         protocol_counts = protocol_run(dev)
         print(f"phase 12 (protocol): {time.time() - t_protocol:.1f} s")
+        t_measure = time.time()
+        bench_counts, verify_counts = measure_run(smi)
+        print(f"phase 13 (measure): {time.time() - t_measure:.1f} s")
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 
@@ -2561,13 +2694,17 @@ def main() -> int:
     by_path = {"serve": serve_counts, "train": train_counts, "lmdb": lmdb_counts,
                "ops": ops_counts, "tile": tile_counts, "preload": preload_counts,
                "online": online_counts, "pipeline": pipeline_counts, "bf16": bf16_counts,
-               "mesh": mesh_counts["mesh"], "export": export_counts, "protocol": protocol_counts}
+               "mesh": mesh_counts["mesh"], "export": export_counts, "protocol": protocol_counts,
+               "bench": bench_counts, "verify": verify_counts}
     for name, (_, _, path) in src.items():
         check(by_path[path][name] > 0, f"{name} was not launched on the {path} path")
     for name in ("fps", "nn_coords"):
         check(export_counts[name] > 0, f"{name} was not launched on the export path")
+    for name in src:
+        check(verify_counts[name] > 0, f"{name} was not launched on the verify path")
     for name in ("fps", "nn_coords", "nn_dyn", "nn_dense", "nn_grad", "emd_cost"):
         check(protocol_counts[name] > 0, f"{name} was not launched on the protocol path")
+        check(bench_counts[name] > 0, f"{name} was not launched on the bench path")
         check(all(c[name] > 0 for c in mesh_counts["mesh_ranks"]),
               f"{name} was not launched on every rank of the mesh path")
     line = {"kernels": [
