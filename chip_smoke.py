@@ -135,12 +135,26 @@
    3``; the launches of the first two counted through
    ``kernels.LAUNCH_LOG_ENV`` and checked exactly ("bench" and "verify" in
    ``launches_by_path``);
-14. prints whether the native .pcd codec was built and how often it read,
+14. the study path: K9 (``csrc/nn_variant.cu``, the NN variant kernel of
+   ``tools/bench_chamfer_variants.py``) in its four variants against
+   ``nn_variant_plain`` at (32,16384,3)², whose plan has 8 queries a
+   thread, and at (4,3000,3)x(4,16384,3) and (2,700,3)x(2,1100,3), of 4:
+   v0 and v2 bit for bit, v0 also equal to K4, v1 and v3 bit for bit but on
+   at most a share of 1e-4 of the queries (each within two ulps of e), v3
+   equal to v1 and v1 not to v0, every index realising its distance within
+   2e-6; then the study tools
+   (``STUDY_TOOLS``: the variant study at (32,16384)², the backend study
+   on the random init and on the converged weights, K3 against K8, K3
+   against dense, the sort microbench, K3 on model outputs, the backward's
+   pieces and the three loss-stack profiles) in this process with ``--iters
+   3``, each one's JSON line parsed and K9's launches checked exactly; K9's
+   row of the JSON line comes from the variant study's numbers;
+15. prints whether the native .pcd codec was built and how often it read,
    the per-kernel JSON line (with the converged b32 step's times; each
    kernel's launches on every path, the preload, online, pipeline, bf16,
-   mesh, export, protocol, bench and verify ones among them; "mesh" is rank
-   0's of the W=2 host-path run, "export" the b4 artifact's 4 batches), then
-   ``{"ok": true, "device": ...}``.
+   mesh, export, protocol, bench, verify and study ones among them; "mesh"
+   is rank 0's of the W=2 host-path run, "export" the b4 artifact's 4
+   batches), then ``{"ok": true, "device": ...}``.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 It needs the rest of the repository: alone, or without a card, it fails.
@@ -235,6 +249,7 @@ def check_k3(name: str, qs, ts, library: bool = True) -> dict:
     import torch
 
     from rfnet_tpu_torch.ops import chamfer, chamfer_pruned
+    from tools.sim_prune_stats_torch import k3_block_pairs, k3_windows
 
     kd, ki = chamfer.nn_dyn(qs, ts)
     pd, pi = chamfer._nn_sorted_plain(qs, ts)
@@ -248,10 +263,7 @@ def check_k3(name: str, qs, ts, library: bool = True) -> dict:
     check(torch.equal(kd, sd) and torch.equal(ki, si), f"K3 {name}: differs from K7")
     b, nq, m = qs.shape[0], qs.shape[1], ts.shape[1]
     # pairs any exact z-slab walk must visit: targets with (qz-tz)^2 <= best
-    tz = ts[..., 2].contiguous()
-    r = torch.sqrt(kd)
-    lo = torch.searchsorted(tz, (qs[..., 2] - r).contiguous(), right=False)
-    hi = torch.searchsorted(tz, (qs[..., 2] + r).contiguous(), right=True)
+    lo, hi = k3_windows(qs, ts, kd)
     pairs = float((hi - lo).sum())
     block_pairs = k3_block_pairs(lo, hi, m)
     ms = cuda_ms(lambda: chamfer.nn_dyn(qs, ts), 20)
@@ -270,28 +282,6 @@ def check_k3(name: str, qs, ts, library: bool = True) -> dict:
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=lib_ms, device_ms=dev_ms, slab_pairs_share=pairs / (b * nq * m),
                 block_pairs_share=block_pairs / (b * nq * m))
-
-
-def k3_block_pairs(lo, hi, m: int) -> float:
-    """Pairs K3's blocks scan at least: a block of 256 consecutive sorted
-    queries loads every slab of ``chamfer._NN_DYN_SLAB`` targets that one of
-    its queries' z-windows [lo, hi) reaches, for all its queries (a warp may
-    still skip a loaded slab by its box)."""
-    import torch
-
-    from rfnet_tpu_torch.ops import chamfer
-
-    slab, tile = chamfer._NN_DYN_SLAB, 256
-    b, nq = lo.shape
-    pad = -nq % tile
-    lo_b = torch.nn.functional.pad(lo, (0, pad), value=m).view(b, -1, tile).amin(-1)
-    hi_b = torch.nn.functional.pad(hi, (0, pad), value=0).view(b, -1, tile).amax(-1)
-    first = torch.minimum(lo_b, hi_b - 1).clamp(min=0) // slab
-    last = (hi_b - 1).clamp(min=0) // slab
-    targets = torch.clamp((last + 1) * slab, max=m) - first * slab
-    live = torch.full_like(targets, tile)
-    live[:, -1] = nq - (live.shape[1] - 1) * tile
-    return float((live * targets).sum())
 
 
 def record(rows: dict, name: str, shape: str, row: dict, main: bool = False) -> None:
@@ -366,10 +356,11 @@ _SASS_LOOPS: dict = {}
 
 def _sass_innermost(kernel: str) -> dict:
     """For each instantiation of ``kernel`` (its template arguments, as the
-    mangled name's ``Lb``/``Li`` values) in the built library: (fp32
-    multiplies and adds, instructions) of its innermost loop that holds the
-    most fp32 multiplies and adds, read with ``cuobjdump -sass``. Empty
-    where the toolkit has no cuobjdump."""
+    mangled name's ``Lb``/``Li`` values) in the built library: the
+    innermost loops, those with the most fp32 multiplies, adds and fused
+    multiply-adds first, each as (fp32 multiplies and adds, instructions,
+    fused multiply-adds), read with ``cuobjdump -sass``. Empty where the
+    toolkit has no cuobjdump."""
     from rfnet_tpu_torch import kernels
 
     if not _SASS_LOOPS:
@@ -385,16 +376,18 @@ def _sass_innermost(kernel: str) -> dict:
             ins = {int(a, 16): op for a, op in re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)}
             loops = [(int(to, 16), at) for at, op in ins.items()
                      for to in re.findall(r"BRA (?:!?P\d, )?0x([0-9a-f]+)", op) if int(to, 16) <= at]
-            best = (0, 0)
+            found = []
             for lo, hi in loops:
                 if any(lo <= a and b <= hi and (a, b) != (lo, hi) for a, b in loops):
                     continue  # not innermost
-                ops = [ins[a].split()[1 if ins[a].startswith("@") else 0]
+                ops = [ins[a].split()[1 if ins[a].startswith("@") else 0].split(".")[0]
                        for a in sorted(ins) if lo <= a <= hi]
-                flops = sum(o.split(".")[0] in ("FMUL", "FADD") for o in ops)
-                best = max(best, (flops, len(ops)))
+                flops = sum(o in ("FMUL", "FADD") for o in ops)
+                fmas = ops.count("FFMA")
+                found.append((flops + fmas, len(ops), flops, fmas))
             args = tuple(int(v) for v in re.findall(r"L[bi](\d+)E", key.group(2)))
-            _SASS_LOOPS.setdefault(key.group(1), {})[args] = best
+            _SASS_LOOPS.setdefault(key.group(1), {})[args] = [
+                (flops, n, fmas) for _, n, flops, fmas in sorted(found, reverse=True)]
     return _SASS_LOOPS.get(kernel, {})
 
 
@@ -404,8 +397,26 @@ def sass_slots_a_pair(coords: bool, per_thread: int) -> float | None:
     loop that holds the most fp32 multiplies and adds (its unrolled body)
     over the pairs that loop computes (7 FMUL or FADD a pair). None where
     the toolkit has no cuobjdump."""
-    loop = _sass_innermost("nn_scan_kernel").get((int(coords), per_thread))
-    return None if loop is None else loop[1] / (loop[0] / 7)
+    loops = _sass_innermost("nn_scan_kernel").get((int(coords), per_thread, 0, 0))
+    return None if not loops else loops[0][1] / (loops[0][0] / 7)
+
+
+def sass_variant_slots_a_pair(fma: bool, eq: bool, per_thread: int) -> float | None:
+    """Issue slots a pair of K9's scan in the variant (``fma``, ``eq``) at
+    ``per_thread`` queries a thread: the instructions of its unrolled loop
+    (of both passes' under ``eq``) over the pairs it computes (7 FMUL or
+    FADD a pair, or 3 FFMA under ``fma``). Under ``eq`` the two loops with
+    the most of them are the passes' bodies, which compute e for the same
+    pairs: None where their counts differ (the compiler unrolled otherwise),
+    or where the toolkit has no cuobjdump."""
+    loops = _sass_innermost("nn_scan_kernel").get((0, per_thread, int(fma), int(eq)))
+    if not loops or len(loops) < 1 + eq:
+        return None
+    flops, _, fmas = loops[0]
+    if eq and (loops[1][0], loops[1][2]) != (flops, fmas):
+        return None
+    pairs = fmas / 3 if fma else flops / 7
+    return sum(n for _, n, _ in loops[:1 + eq]) / pairs
 
 
 def sass_tiles_slots_a_pair(best_first: bool) -> float | None:
@@ -415,8 +426,8 @@ def sass_tiles_slots_a_pair(best_first: bool) -> float | None:
     queries a thread. None where the toolkit has no cuobjdump."""
     from rfnet_tpu_torch.ops import chamfer
 
-    loop = _sass_innermost("nn_tiles_kernel").get((int(best_first),))
-    return None if loop is None else loop[1] / (32 * chamfer._NN_TILES_R)
+    loops = _sass_innermost("nn_tiles_kernel").get((int(best_first),))
+    return None if not loops else loops[0][1] / (32 * chamfer._NN_TILES_R)
 
 
 def sm_clock_hz() -> float:
@@ -682,12 +693,12 @@ def check_train_kernels(dev, rows: dict) -> None:
 
 # launches of each kernel in one train step and in one eval batch of 4
 STEP_LAUNCHES = {"fps": 3, "nn_coords": 3, "nn_dyn": 4, "nn_dense": 2, "nn_grad": 2,
-                 "emd_cost": 0, "nn_pruned": 0, "nn_tile": 0}
+                 "emd_cost": 0, "nn_pruned": 0, "nn_tile": 0, "nn_variant": 0}
 EVAL_LAUNCHES = {"fps": 1, "nn_coords": 3, "nn_dyn": 2, "nn_dense": 0, "nn_grad": 0,
-                 "emd_cost": 1, "nn_pruned": 0, "nn_tile": 0}
+                 "emd_cost": 1, "nn_pruned": 0, "nn_tile": 0, "nn_variant": 0}
 # launches in one serving batch of 4: forward, CD both ways, fidelity
 SERVE_LAUNCHES = {"fps": 1, "nn_coords": 3, "nn_dyn": 3, "nn_dense": 0, "nn_grad": 0,
-                  "emd_cost": 0, "nn_pruned": 0, "nn_tile": 0}
+                  "emd_cost": 0, "nn_pruned": 0, "nn_tile": 0, "nn_variant": 0}
 
 
 def under_tile_backend(counts: dict) -> dict:
@@ -1158,51 +1169,17 @@ def forward_throughput(dev):
 TILED_KERNELS = ("run_boxes_kernel", "nn_tiles_kernel")
 
 
-def tiled_needed_pairs(qs, ts, best, warp: int) -> tuple[float, float]:
-    """Pairs that no exact box rule over 32-target runs of the sorted target
-    can skip: for each query, the points of every run of 32 consecutive
-    targets (the kernels' chunk, whatever their tile) whose box is no farther
-    than the query's final best. One basis for K7 and K8 and their bounds.
-    Also the pairs a warp of ``warp`` consecutive queries scans when it votes
-    on each run with those final bests: the union of its queries' runs,
-    times its queries."""
-    import torch
-
-    from rfnet_tpu_torch.ops import chamfer
-
-    n, m = qs.shape[1], ts.shape[1]
-    boxes = chamfer._tile_boxes(ts, 32)
-    sizes = torch.full((boxes.shape[1],), 32.0, device=qs.device)
-    sizes[-1] = m - (boxes.shape[1] - 1) * 32
-    live = torch.clamp(n - torch.arange(0, n, warp, device=qs.device), max=warp).float()
-    pairs = union = 0.0
-    for lo in range(0, qs.shape[0], 8):  # (8, n, m / 32) gaps at a time
-        q, bx = qs[lo:lo + 8], boxes[lo:lo + 8]
-        gap2 = torch.zeros((q.shape[0], n, bx.shape[1]), device=qs.device)
-        for a in range(3):
-            qa = q[:, :, None, a]
-            g = torch.clamp(torch.maximum(bx[:, None, :, a] - qa, qa - bx[:, None, :, 3 + a]),
-                            min=0.0)
-            gap2 += g * g
-        need = gap2 <= best[lo:lo + 8, :, None]
-        del gap2
-        pairs += float((need * sizes).sum())
-        need = torch.nn.functional.pad(need, (0, 0, 0, -n % warp))
-        wants = need.view(need.shape[0], -1, warp, need.shape[2]).any(2)
-        union += float(((wants * sizes).sum(-1) * live).sum())
-    return pairs, union
-
-
 def check_tiled(kernel: str, name: str, q, t, library: bool = True) -> dict:
     """K7 or K8 on the clouds ``q`` -> ``t`` (sorted here as the kernel wants
     them) against the full plain scan, bit for bit on distances and indices,
     K7 also against K3; timed (the wrapper's call, and the card alone: the
     box pass and the walk in ``torch.profiler``) beside K3 on the same
     clouds z-sorted. The bound counts the pairs no exact rule over 32-target
-    runs can skip (:func:`tiled_needed_pairs`)."""
+    runs can skip (``tools/sim_prune_stats_torch.py:tiled_needed_pairs``)."""
     import torch
 
     from rfnet_tpu_torch.ops import chamfer, chamfer_pruned, chamfer_tile
+    from tools.sim_prune_stats_torch import tiled_needed_pairs
 
     label, sort_fn, fn, plan = {
         "nn_pruned": ("K7", chamfer.sort_by_z_with_order, chamfer_pruned.nn_pruned,
@@ -2517,7 +2494,7 @@ FORWARD_LAUNCHES = {"fps": 1, "nn_coords": 3}
 VERIFY_LAUNCHES = {k: v + 3 * FORWARD_LAUNCHES.get(k, 0) + 3 * STEP_LAUNCHES[k]
                    for k, v in {"fps": 1, "nn_coords": 1, "nn_dyn": 7, "nn_dense": 12,
                                 "nn_grad": 2, "emd_cost": 2, "nn_pruned": 3,
-                                "nn_tile": 3}.items()}
+                                "nn_tile": 3, "nn_variant": 0}.items()}
 VERIFY_CHECKS = 15
 # bench.py's _component_breakdown keys, and those bench_torch.py adds; the
 # sweep's keys besides (fwd_[bf16_]b<N>_ms, _clouds_per_sec, _peak_gb)
@@ -2623,6 +2600,119 @@ def measure_run(smi: str) -> tuple[dict, dict]:
     return bench_counts, verify_counts
 
 
+# phase 14: the study tools (tools 2-9 of the port's study path), each run
+# once in this process at full width with few timed calls: (module in tools/,
+# arguments); the backend study twice, on the random init and on the
+# converged weights
+STUDY_ITERS = 3
+STUDY_TOOLS = (
+    ("bench_chamfer_variants_torch", []),
+    ("bench_chamfer_backend_torch", []),
+    ("bench_chamfer_backend_torch", ["--checkpoint", WEIGHTS]),
+    ("bench_chamfer_tile_torch", []),
+    ("bench_chamfer_dyn_torch", []),
+    ("bench_chamfer_dyn2_torch", []),
+    ("bench_dyn_realdata_torch", []),
+    ("bench_bwd_pieces_torch", []),
+    ("profile_step_gap_torch", []),
+    ("profile_loss_ablate_torch", []),
+    ("profile_loss_composites_torch", []),
+)
+# K9's shapes of phase 14's checks: the variant study's timed shape, whose
+# plan has 8 queries a thread, and two of 4: a ragged (4,3000)->16384 and
+# the JAX tool's parity shape
+VARIANT_SHAPES = ((32, 16384, 16384), (4, 3000, 16384), (2, 700, 1100))
+
+
+def check_variant(q, t) -> float:
+    """K9 in its four variants against ``nn_variant_plain`` on the card, by
+    the variant study's ``hold_variants`` (v0 and v2 bit for bit, v1 and v3
+    bit for bit but on at most a share of 1e-4 of the queries, each within
+    two ulps of e and every index realising its distance within 2e-6; v3
+    bit-equal to v1, v1 not v0), and v0 bit-equal to K4. Returns the
+    largest distance difference."""
+    import torch
+
+    from rfnet_tpu_torch.ops import chamfer, fps
+    from tools.bench_chamfer_variants_torch import VARIANTS, hold_variants, nn_variant
+
+    outs = {name: nn_variant(q, t, fma=fma, eq_argmin=eq) for name, fma, eq in VARIANTS}
+    k4 = chamfer.nn_dense(q, t)
+    torch.cuda.synchronize()
+    shape = f"({q.shape[0]},{q.shape[1]},3)x({t.shape[0]},{t.shape[1]},3)"
+    check(all(torch.equal(a, b) for a, b in zip(outs[VARIANTS[0][0]], k4)),
+          f"K9 v0 {shape}: differs from K4")
+    held = hold_variants(q, t, outs)
+    plan = chamfer._nn_scan_plan(*q.shape[:2], t.shape[1], fps._sm_count(q.device))
+    print(f"K9 nn_variant {shape}, plan {plan}: "
+          "v0 bit-equal to K4; " + "; ".join(
+              f"{k} err {v['max_abs_err']:.3g}, {v['differ']:.3g} of the queries differ, "
+              f"realised {v['realised_err']:.3g}" for k, v in held.items()))
+    return max(v["max_abs_err"] for v in held.values())
+
+
+def study_run(dev, smi: str, rows: dict) -> dict:
+    """Phase 14, the study path: K9 held to its plain version at
+    ``VARIANT_SHAPES``; then the tools of ``STUDY_TOOLS``, each with
+    ``--iters STUDY_ITERS`` in this process (a tool that stops fails the
+    phase), the last line of each parsed as its JSON result on this card.
+    Records K9's row from the variant study's numbers; returns the
+    launches of the tools' run, K9's checked exactly."""
+    import importlib
+
+    import numpy as np
+    import torch
+
+    from rfnet_tpu_torch import kernels
+    from rfnet_tpu_torch.ops import chamfer, fps
+    from tools import bench_chamfer_variants_torch
+
+    rng = np.random.RandomState(14)
+    errs = {}
+    for b, n, m in VARIANT_SHAPES:
+        q, t = (torch.from_numpy(rng.rand(b, k, 3).astype(np.float32)).to(dev) for k in (n, m))
+        errs[b, n, m] = check_variant(q, t)
+    per_thread = {chamfer._nn_scan_plan(*shape, fps._sm_count(dev))[0] for shape in errs}
+    check(per_thread == {4, 8}, f"K9's checks cover {per_thread} queries a thread, not 4 and 8")
+    name = smi.rsplit(",", 1)[0].strip()
+    kernels.reset_launch_counts()
+    results = {}
+    for module, argv in STUDY_TOOLS:
+        t0 = time.time()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            importlib.import_module(f"tools.{module}").main(["--iters", str(STUDY_ITERS), *argv])
+        line = json.loads(buf.getvalue().strip().splitlines()[-1])
+        check(line["device"]["name"] == name, f"{module}: device {line['device']} on {smi}")
+        results.setdefault(module, line)
+        print(f"{module} {' '.join(argv)} ({time.time() - t0:.1f} s): {json.dumps(line)}")
+    counts = dict(kernels.launches)
+    want = bench_chamfer_variants_torch.expected_launches(STUDY_ITERS)
+    check(counts["nn_variant"] == want, f"study: K9 launched {counts['nn_variant']} times, "
+          f"expected {want}")
+    for k in ("fps", "nn_coords", "nn_dyn", "nn_dense", "nn_grad", "nn_tile"):
+        check(counts[k] > 0, f"{k} was not launched on the study path")
+    v = results["bench_chamfer_variants_torch"]
+    b, n, m = v["shape"]
+    check((b, n, m) in errs, f"K9 was not held to its plain version at ({b},{n})x({m})")
+    b_ms, b_by = bound(9.0 * b * n * m, 4.0 * b * (3 * n + 3 * m + 2 * n))
+    plan = chamfer._nn_scan_plan(b, n, m, fps._sm_count(dev))
+    slots = {k: sass_variant_slots_a_pair(f, e, plan[0])
+             for k, f, e in bench_chamfer_variants_torch.VARIANTS}
+    row = dict(max_abs_err=errs[b, n, m], ms=v["variants_ms"]["v0 baseline"],
+               plain_ms=v["plain_ms"], bound_ms=b_ms, bound_by=b_by, library_ms=v["library_ms"],
+               variants_ms=v["variants_ms"], k4_ms=v["k4_ms"], plan=list(plan),
+               sass_slots_a_pair=slots, four_scans_ms=v["four_scans_ms"],
+               batched_ms=v["batched_ms"])
+    record(rows, "nn_variant", f"({b},{n},3)x({b},{m},3)", row, main=True)
+    print(f"K9 at ({b},{n})x({m}): " + ", ".join(
+        f"{k} {ms:.4f} ms ({fmt_ms(slots[k])} issue slots a pair)"
+        for k, ms in v["variants_ms"].items())
+          + f"; K4 {v['k4_ms']:.4f} ms, plain {v['plain_ms']:.4f} ms, cdist.min "
+          f"{v['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}); plan {plan}")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -2680,6 +2770,9 @@ def main() -> int:
         t_measure = time.time()
         bench_counts, verify_counts = measure_run(smi)
         print(f"phase 13 (measure): {time.time() - t_measure:.1f} s")
+        t_study = time.time()
+        study_counts = study_run(dev, smi, rows)
+        print(f"phase 14 (study): {time.time() - t_study:.1f} s")
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 
@@ -2690,18 +2783,20 @@ def main() -> int:
            "nn_grad": ("nn_grad.cu", "rfnet_tpu/ops/pallas/nn_grad.py:81", "train"),
            "emd_cost": ("emd_cost.cu", "rfnet_tpu/ops/pallas/emd.py:347", "train"),
            "nn_pruned": ("nn_pruned.cu", "rfnet_tpu/ops/pallas/chamfer_pruned.py:128", "ops"),
-           "nn_tile": ("nn_tile.cu", "rfnet_tpu/ops/pallas/chamfer_tile.py:214", "tile")}
+           "nn_tile": ("nn_tile.cu", "rfnet_tpu/ops/pallas/chamfer_tile.py:214", "tile"),
+           "nn_variant": ("nn_variant.cu", "tools/bench_chamfer_variants.py:42", "study")}
     by_path = {"serve": serve_counts, "train": train_counts, "lmdb": lmdb_counts,
                "ops": ops_counts, "tile": tile_counts, "preload": preload_counts,
                "online": online_counts, "pipeline": pipeline_counts, "bf16": bf16_counts,
                "mesh": mesh_counts["mesh"], "export": export_counts, "protocol": protocol_counts,
-               "bench": bench_counts, "verify": verify_counts}
+               "bench": bench_counts, "verify": verify_counts, "study": study_counts}
     for name, (_, _, path) in src.items():
         check(by_path[path][name] > 0, f"{name} was not launched on the {path} path")
     for name in ("fps", "nn_coords"):
         check(export_counts[name] > 0, f"{name} was not launched on the export path")
-    for name in src:
-        check(verify_counts[name] > 0, f"{name} was not launched on the verify path")
+    for name in src:  # K9 runs on the study path alone
+        check(name == "nn_variant" or verify_counts[name] > 0,
+              f"{name} was not launched on the verify path")
     for name in ("fps", "nn_coords", "nn_dyn", "nn_dense", "nn_grad", "emd_cost"):
         check(protocol_counts[name] > 0, f"{name} was not launched on the protocol path")
         check(bench_counts[name] > 0, f"{name} was not launched on the bench path")

@@ -81,6 +81,9 @@ _SIGNATURES = {
     # stream
     "nn_pruned": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P),
     "nn_tile": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P),
+    # query, target, b, n, m, the plan as for nn_dense, fma, eq_argmin,
+    # dist_out, idx_out, stream (K9, the variant study's scan)
+    "nn_variant": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P),
 }
 
 # launches of each kernel since the last reset_launch_counts()

@@ -809,3 +809,36 @@ def test_exported_forward_runs_the_kernels(cuda, tmp_path, batch_size):
         torch.cuda.synchronize()
         assert (kernels.launches["fps"], kernels.launches["nn_coords"]) == (1, 3)
         torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("per_thread", [4, 8])
+@pytest.mark.parametrize("fma,eq", [(False, False), (True, False), (False, True), (True, True)])
+@pytest.mark.parametrize("n,m", [(700, 1100), (3000, 16384), (1, 1), (70, 150)])
+def test_nn_variant_kernel_equals_plain(cuda, per_thread, fma, eq, n, m):
+    """K9 at 4 and at 8 queries a thread (the planner's split of the
+    targets) against its plain version by the study's ``hold_to_plain``:
+    without the fma bit for bit (and v0 equal to K4); with it bit for bit
+    but on at most a share of 1e-4 of the queries, each within two ulps of
+    e, every index realising its distance within 2e-6."""
+    from tools.bench_chamfer_variants_torch import hold_to_plain
+
+    q, t = (x.to(cuda) for x in _clouds(9, (2, n, 3), (2, m, 3)))
+    sms = fps._sm_count(cuda)
+    _, _, w, c, _ = chamfer._nn_scan_plan(2, n, m, sms)
+    plan = chamfer._nn_scan_fill(2, n, m, per_thread, w, c, sms)
+    kd = torch.empty(2, n, device=cuda)
+    ki = torch.empty(2, n, dtype=torch.int32, device=cuda)
+    before = kernels.launches["nn_variant"]
+    kernels.launch("nn_variant", cuda, q, t, 2, n, m, *plan, int(fma), int(eq), kd, ki)
+    assert kernels.launches["nn_variant"] == before + 1
+    hold_to_plain(q, t, kd, ki, fma)
+    if not fma and not eq:
+        kd4, ki4 = chamfer._nn_scan_launch("nn_dense", q, t, plan)
+        assert torch.equal(kd, kd4) and torch.equal(ki, ki4)
+
+
+def test_nn_variant_refuses_an_unknown_variant(cuda):
+    q, t = (x.to(cuda) for x in _clouds(9, (1, 40, 3), (1, 60, 3)))
+    out = (torch.empty(1, 40, device=cuda), torch.empty(1, 40, dtype=torch.int32, device=cuda))
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        kernels.launch("nn_variant", cuda, q, t, 1, 40, 60, 4, 1, 1, 1, 1, 2, 0, *out)

@@ -15,6 +15,7 @@ no JAX.
 
 from __future__ import annotations
 
+import json
 import os as _os
 import subprocess
 import sys as _sys
@@ -25,7 +26,9 @@ if _REPO not in _sys.path:
     _sys.path.insert(0, _REPO)
 
 import contextlib  # noqa: E402
+import dataclasses  # noqa: E402
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from rfnet_tpu_torch.eval import _checkpoint_file, load_state  # noqa: E402
@@ -53,6 +56,58 @@ def tool_model(config, device: torch.device, checkpoint: str | None = None,
         with contextlib.redirect_stdout(_sys.stderr):
             model = load_state(checkpoint, dtype=dtype)
     return model.to(device).eval()
+
+
+def rand_clouds(rng: np.random.RandomState, b: int, sizes, device) -> list[torch.Tensor]:
+    """(b, n, 3) uniform clouds on ``device``, one for each n of ``sizes``,
+    drawn from ``rng`` in that order."""
+    return [torch.from_numpy(rng.rand(b, n, 3).astype(np.float32)).to(device) for n in sizes]
+
+
+def fabricated_outputs(config, b: int, device):
+    """The loss tools' inputs as the JAX tools draw them: ``RandomState(0)``
+    clouds partial (b, innum), gt (b, ptnum), gt1 and gt2 (b, the pyramid
+    sizes), and the outputs of the model's seeded random init for that
+    partial, detached: fabricated outputs with the model's real shapes.
+    Returns (outputs, gt, gt1, gt2)."""
+    from bench_torch import pyramid_sizes
+
+    partial, gt, gt1, gt2 = rand_clouds(np.random.RandomState(0), b,
+                                        (config.innum, config.ptnum, *pyramid_sizes(config)),
+                                        device)
+    with torch.no_grad():
+        outputs = tool_model(config, torch.device(device))(partial)
+    return outputs, gt, gt1, gt2
+
+
+def loss_grads(loss, outputs, *args):
+    """(value, {field: gradient}) of ``loss(outputs, *args)`` in every field
+    of the model's ``outputs`` (None where a field takes none), as
+    ``jax.value_and_grad`` in the outputs gives them."""
+    leaves = {f.name: getattr(outputs, f.name).detach().requires_grad_()
+              for f in dataclasses.fields(outputs)}
+    val = loss(type(outputs)(**leaves), *args)
+    g = torch.autograd.grad(val, list(leaves.values()), allow_unused=True)
+    return val.detach(), dict(zip(leaves, g))
+
+
+def grads(f, *xs):
+    """Gradients of ``f(*xs)`` in ``xs``."""
+    xs = [x.detach().requires_grad_() for x in xs]
+    return torch.autograd.grad(f(*xs), xs)
+
+
+def emit(result: dict) -> dict:
+    """Print ``result`` as the tool's last line, one JSON object."""
+    print(json.dumps(result), flush=True)
+    return result
+
+
+def require(cond: bool, msg: str) -> None:
+    """Stop the tool with a non-zero exit where a check of its results
+    fails."""
+    if not cond:
+        raise SystemExit(f"check failed: {msg}")
 
 
 def timeit(name, fn, *args, iters: int = 10, warmups: int = 2,

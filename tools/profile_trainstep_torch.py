@@ -42,16 +42,10 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from tools._common_torch import TINY, WEIGHTS, device_info, resolve_device  # noqa: E402
-from tools._common_torch import timeit, tool_model  # noqa: E402
+from tools._common_torch import grads, timeit, tool_model  # noqa: E402
 
 B = 32
 TINY_B = 4
-
-
-def grads(f, *xs):
-    """Gradients of ``f(*xs)`` in ``xs``."""
-    xs = [x.detach().requires_grad_() for x in xs]
-    return torch.autograd.grad(f(*xs), xs)
 
 
 def main(argv=None) -> dict:
