@@ -137,18 +137,20 @@
    ``launches_by_path``);
 14. the study path: K9 (``csrc/nn_variant.cu``, the NN variant kernel of
    ``tools/bench_chamfer_variants.py``) in its four variants against
-   ``nn_variant_plain`` at (32,16384,3)², whose plan has 8 queries a
-   thread, and at (4,3000,3)x(4,16384,3) and (2,700,3)x(2,1100,3), of 4:
-   v0 and v2 bit for bit, v0 also equal to K4, v1 and v3 bit for bit but on
-   at most a share of 1e-4 of the queries (each within two ulps of e), v3
-   equal to v1 and v1 not to v0, every index realising its distance within
-   2e-6; then the study tools
+   ``nn_variant_plain`` at (32,16384,3)², whose plans have 8 queries a
+   thread, and at (4,3000,3)x(4,16384,3) and (2,700,3)x(2,1100,3), of 4
+   (the targets split over warps and CTAs), on uniform clouds and, at the
+   first two, on tie-heavy ones (``VARIANT_CASES``): every variant bit for
+   bit, distances and indices, v0 also equal to K4, v2 to v0 and v3 to v1,
+   v1 not to v0 on uniform clouds; then the study tools
    (``STUDY_TOOLS``: the variant study at (32,16384)², the backend study
    on the random init and on the converged weights, K3 against K8, K3
    against dense, the sort microbench, K3 on model outputs, the backward's
    pieces and the three loss-stack profiles) in this process with ``--iters
    3``, each one's JSON line parsed and K9's launches checked exactly; K9's
-   row of the JSON line comes from the variant study's numbers;
+   row of the JSON line comes from the variant study's numbers, with each
+   variant's plan, live warps an SM (at least the plan's design), SASS
+   slots a pair and issue floor;
 15. prints whether the native .pcd codec was built and how often it read,
    the per-kernel JSON line (with the converged b32 step's times; each
    kernel's launches on every path, the preload, online, pipeline, bf16,
@@ -241,11 +243,31 @@ def bound(flops: float, nbytes: float) -> tuple[float, str]:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def check_k3(name: str, qs, ts, library: bool = True) -> dict:
+def library_ms(q, t, iters: int) -> tuple[float, int]:
+    """The yardstick ``torch.cdist(q, t).min(-1)`` timed: one call where its
+    (b, n, m) matrix stays within 8 GiB, else in chunks of queries as K9's
+    row times it (``tools/bench_chamfer_variants_torch.py``:
+    ``library_chunk``, ``cdist_min``). Returns its ms and the queries a
+    call."""
+    import torch
+
+    from tools.bench_chamfer_variants_torch import cdist_min, library_chunk
+
+    b, n, m = q.shape[0], q.shape[1], t.shape[1]
+    chunk = library_chunk(b, n, m)
+    if chunk >= n:
+        return cuda_ms(lambda: torch.cdist(q, t).min(-1), iters), n
+    return cuda_ms(lambda: cdist_min(q, t, chunk), iters), chunk
+
+
+def fmt_library(ms: float, chunk: int, n: int) -> str:
+    return f"{ms:.4f} ms" + ("" if chunk >= n else f" ({chunk} queries a call)")
+
+
+def check_k3(name: str, qs, ts) -> dict:
     """K3 on z-sorted clouds against the full plain scan and against K7 on
     the same inputs, bit for bit on distances and indices; returns its row.
-    The yardstick ``cdist(q, t).min(-1)`` is skipped where its (b, n, m)
-    matrix would not fit in the card's memory."""
+    The yardstick ``cdist(q, t).min(-1)`` is :func:`library_ms`'s."""
     import torch
 
     from rfnet_tpu_torch.ops import chamfer, chamfer_pruned
@@ -269,9 +291,9 @@ def check_k3(name: str, qs, ts, library: bool = True) -> dict:
     ms = cuda_ms(lambda: chamfer.nn_dyn(qs, ts), 20)
     dev_ms = device_ms(lambda: chamfer.nn_dyn(qs, ts), 10, "nn_dyn_kernel")
     plain_ms = cuda_ms(lambda: chamfer._nn_sorted_plain(qs, ts), 3, warmup=1)
-    lib_ms = cuda_ms(lambda: torch.cdist(qs, ts).min(-1), 5) if library else None
+    lib_ms, lib_q = library_ms(qs, ts, 5)
     b_ms, b_by = bound(9.0 * pairs, 4.0 * b * (3 * nq + 3 * m + 2 * nq))
-    lib = f"{lib_ms:.4f} ms" if library else "not run (matrix too large)"
+    lib = fmt_library(lib_ms, lib_q, nq)
     print(f"K3 nn_dyn {name} ({b},{nq},3)x({b},{m},3): distances and indices bit-equal to the "
           f"full plain scan and to K7; slab pairs {pairs:.0f} "
           f"({pairs / (b * nq * m):.4%} of dense), pairs of the slabs the blocks must load "
@@ -280,7 +302,8 @@ def check_k3(name: str, qs, ts, library: bool = True) -> dict:
           f"({fmt_ms(dev_ms)} on the card alone), plain {plain_ms:.4f} ms, cdist.min {lib}, "
           f"bound {b_ms:.6f} ms ({b_by})")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=lib_ms, device_ms=dev_ms, slab_pairs_share=pairs / (b * nq * m),
+                library_ms=lib_ms, library_queries=lib_q, device_ms=dev_ms,
+                slab_pairs_share=pairs / (b * nq * m),
                 block_pairs_share=block_pairs / (b * nq * m))
 
 
@@ -359,8 +382,9 @@ def _sass_innermost(kernel: str) -> dict:
     mangled name's ``Lb``/``Li`` values) in the built library: the
     innermost loops, those with the most fp32 multiplies, adds and fused
     multiply-adds first, each as (fp32 multiplies and adds, instructions,
-    fused multiply-adds), read with ``cuobjdump -sass``. Empty where the
-    toolkit has no cuobjdump."""
+    fused multiply-adds, instructions a forward branch inside the loop
+    skips), read with ``cuobjdump -sass``. Empty where the toolkit has no
+    cuobjdump."""
     from rfnet_tpu_torch import kernels
 
     if not _SASS_LOOPS:
@@ -374,20 +398,25 @@ def _sass_innermost(kernel: str) -> dict:
             if not key:
                 continue
             ins = {int(a, 16): op for a, op in re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)}
-            loops = [(int(to, 16), at) for at, op in ins.items()
-                     for to in re.findall(r"BRA (?:!?P\d, )?0x([0-9a-f]+)", op) if int(to, 16) <= at]
+            branches = [(at, int(to, 16)) for at, op in ins.items()
+                        for to in re.findall(r"BRA (?:!?P\d, )?0x([0-9a-f]+)", op)]
+            loops = [(to, at) for at, to in branches if to <= at]
             found = []
             for lo, hi in loops:
                 if any(lo <= a and b <= hi and (a, b) != (lo, hi) for a, b in loops):
                     continue  # not innermost
+                body = [a for a in sorted(ins) if lo <= a <= hi]
                 ops = [ins[a].split()[1 if ins[a].startswith("@") else 0].split(".")[0]
-                       for a in sorted(ins) if lo <= a <= hi]
+                       for a in body]
                 flops = sum(o in ("FMUL", "FADD") for o in ops)
                 fmas = ops.count("FFMA")
-                found.append((flops + fmas, len(ops), flops, fmas))
+                skipped = {a for at, to in branches if lo <= at < to <= hi
+                           for a in body if at < a < to}
+                found.append((flops + fmas, len(ops), flops, fmas, len(skipped)))
             args = tuple(int(v) for v in re.findall(r"L[bi](\d+)E", key.group(2)))
             _SASS_LOOPS.setdefault(key.group(1), {})[args] = [
-                (flops, n, fmas) for _, n, flops, fmas in sorted(found, reverse=True)]
+                (flops, n, fmas, skipped)
+                for _, n, flops, fmas, skipped in sorted(found, reverse=True)]
     return _SASS_LOOPS.get(kernel, {})
 
 
@@ -397,26 +426,25 @@ def sass_slots_a_pair(coords: bool, per_thread: int) -> float | None:
     loop that holds the most fp32 multiplies and adds (its unrolled body)
     over the pairs that loop computes (7 FMUL or FADD a pair). None where
     the toolkit has no cuobjdump."""
-    loops = _sass_innermost("nn_scan_kernel").get((int(coords), per_thread, 0, 0))
+    loops = _sass_innermost("nn_scan_kernel").get((int(coords), per_thread))
     return None if not loops else loops[0][1] / (loops[0][0] / 7)
 
 
 def sass_variant_slots_a_pair(fma: bool, eq: bool, per_thread: int) -> float | None:
-    """Issue slots a pair of K9's scan in the variant (``fma``, ``eq``) at
-    ``per_thread`` queries a thread: the instructions of its unrolled loop
-    (of both passes' under ``eq``) over the pairs it computes (7 FMUL or
-    FADD a pair, or 3 FFMA under ``fma``). Under ``eq`` the two loops with
-    the most of them are the passes' bodies, which compute e for the same
-    pairs: None where their counts differ (the compiler unrolled otherwise),
-    or where the toolkit has no cuobjdump."""
-    loops = _sass_innermost("nn_scan_kernel").get((0, per_thread, int(fma), int(eq)))
-    if not loops or len(loops) < 1 + eq:
+    """Issue slots a pair of K9 in the variant (``fma``, ``eq``) at
+    ``per_thread`` queries a thread. v0 is K4's kernel
+    (:func:`sass_slots_a_pair`). For v1-v3, the unrolled chunk loop of
+    ``nn_variant_kernel``: its instructions but those a forward branch skips
+    (the re-find blocks, taken on a small share of chunks) over the pairs it
+    computes (3 FFMA a pair under ``fma``, else 3 FMUL and 2 FADD). None
+    where the toolkit has no cuobjdump."""
+    if not fma and not eq:
+        return sass_slots_a_pair(False, per_thread)
+    loops = _sass_innermost("nn_variant_kernel").get((per_thread, int(fma), int(eq)))
+    if not loops:
         return None
-    flops, _, fmas = loops[0]
-    if eq and (loops[1][0], loops[1][2]) != (flops, fmas):
-        return None
-    pairs = fmas / 3 if fma else flops / 7
-    return sum(n for _, n, _ in loops[:1 + eq]) / pairs
+    flops, n, fmas, skipped = loops[0]
+    return (n - skipped) / (fmas / 3 if fma else flops / 5)
 
 
 def sass_tiles_slots_a_pair(best_first: bool) -> float | None:
@@ -664,9 +692,8 @@ def check_train_kernels(dev, rows: dict) -> None:
     gss, _ = chamfer.sort_by_z_with_order(gt.reshape(256, 2048, 3))
     for name, qs, ts in (("pair gt->out", gt2x, outs), ("pair out->gt", outs, gt2x),
                          ("re_chamfer pred->gt", ps, gss), ("re_chamfer gt->pred", gss, ps)):
-        # cdist's (64, 16384, 16384) matrix of the pair would take 64 GiB
         record(rows, "nn_dyn", f"{name} {tuple(qs.shape)}x{tuple(ts.shape)}",
-               check_k3(name, qs, ts, library=name.startswith("re_chamfer")))
+               check_k3(name, qs, ts))
 
     # K5: the two scatters a train step runs, with real argmins from K3
     d1, i1 = chamfer.nn_dyn(gt2x, outs)  # pair: gt rows routed onto outputs
@@ -1020,15 +1047,13 @@ def converged_kernels(dev, rows: dict) -> None:
     p4, g4, o4 = (x[:B].contiguous() for x in (partial, gt, out4))
     gt2, pair = torch.cat([gt, gt], 0), torch.cat([out3, out4], 0)
     z = lambda x: chamfer.sort_by_z_with_order(x.contiguous())[0]  # noqa: E731
-    # cdist's (64, 16384, 16384) matrix of the pair would take 64 GiB
-    cases = [("converged out->gt", o4, g4, True), ("converged gt->out", g4, o4, True),
-             ("converged partial->out", p4, o4, True),
-             ("converged pair gt->out", gt2, pair, False),
-             ("converged pair out->gt", pair, gt2, False)]
-    for name, q, t, library in cases:
-        record(rows, "nn_dyn", name, check_k3(name, z(q), z(t), library))
+    cases = [("converged out->gt", o4, g4), ("converged gt->out", g4, o4),
+             ("converged partial->out", p4, o4), ("converged pair gt->out", gt2, pair),
+             ("converged pair out->gt", pair, gt2)]
+    for name, q, t in cases:
+        record(rows, "nn_dyn", name, check_k3(name, z(q), z(t)))
         record(rows, "nn_tile", name, check_tiled("nn_tile", name, q.contiguous(),
-                                                   t.contiguous(), library))
+                                                   t.contiguous()))
     record(rows, "nn_pruned", "converged op API out->partial",
            check_tiled("nn_pruned", "converged op API out->partial", o4, p4))
     record(rows, "emd_cost", "converged (4,16384,3)x(4,16384,3)", check_k6("converged", g4, o4))
@@ -1169,7 +1194,7 @@ def forward_throughput(dev):
 TILED_KERNELS = ("run_boxes_kernel", "nn_tiles_kernel")
 
 
-def check_tiled(kernel: str, name: str, q, t, library: bool = True) -> dict:
+def check_tiled(kernel: str, name: str, q, t) -> dict:
     """K7 or K8 on the clouds ``q`` -> ``t`` (sorted here as the kernel wants
     them) against the full plain scan, bit for bit on distances and indices,
     K7 also against K3; timed (the wrapper's call, and the card alone: the
@@ -1210,10 +1235,10 @@ def check_tiled(kernel: str, name: str, q, t, library: bool = True) -> dict:
     dev_ms = device_ms(lambda: fn(qs, ts), 10, TILED_KERNELS)
     k3_ms = cuda_ms(lambda: chamfer.nn_dyn(qz, tz), 10)
     plain_ms = cuda_ms(lambda: chamfer._nn_sorted_plain(qs, ts), 2, warmup=1)
-    lib_ms = cuda_ms(lambda: torch.cdist(qs, ts).min(-1), 5) if library else None
+    lib_ms, lib_q = library_ms(qs, ts, 5)
     b_ms, b_by = bound(9.0 * pairs, 4.0 * b * (3 * nq + 3 * m + 2 * nq))
     slots = sass_tiles_slots_a_pair(kernel == "nn_tile")
-    lib = f"{lib_ms:.4f} ms" if library else "not run (matrix too large)"
+    lib = fmt_library(lib_ms, lib_q, nq)
     print(f"{label} {kernel} {name} ({b},{nq},3)x({b},{m},3), plan (warps, tile) "
           f"{(warps, tile_m)}: distances and indices bit-equal to the plain scan; tiles "
           f"staged {loaded:.4%}, pairs no 32-target box rule can skip {pairs / (b * nq * m):.4%} "
@@ -1223,26 +1248,25 @@ def check_tiled(kernel: str, name: str, q, t, library: bool = True) -> dict:
           f"({b_by}); SASS {'not measured' if slots is None else f'{slots:.3f}'} issue slots a "
           f"pair of the chunk loop")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=lib_ms, device_ms=dev_ms, k3_ms=k3_ms, plan=[warps, tile_m],
+                library_ms=lib_ms, library_queries=lib_q, device_ms=dev_ms, k3_ms=k3_ms,
+                plan=[warps, tile_m],
                 tiles_staged=loaded, needed_pairs_share=pairs / (b * nq * m),
                 warp_union_share=union / (b * nq * m),
                 sass_slots_a_pair=slots)
 
 
 def k3_random_init_cases(gt, gt2, rnd_a, rnd_b, pair_rnd) -> list:
-    """(name, sorted queries, sorted targets, time cdist) of K3 on a
-    random-init model's outputs, which lie far from the ground truth: the
-    metrics' scans at batch 4 and the losses' pair and re_chamfer scans."""
+    """(name, sorted queries, sorted targets) of K3 on a random-init
+    model's outputs, which lie far from the ground truth: the metrics' scans
+    at batch 4 and the losses' pair and re_chamfer scans."""
     from rfnet_tpu_torch.ops import chamfer
 
     z = lambda x: chamfer.sort_by_z_with_order(x.contiguous())[0]  # noqa: E731
     g4, r4, g2, p2 = z(gt[:4]), z(rnd_b[:4]), z(gt2), z(pair_rnd)
-    # cdist's (64, 16384, 16384) matrix of the pair would take 64 GiB
-    return [("random-init out->gt", r4, g4, True), ("random-init gt->out", g4, r4, True),
-            ("random-init pair gt->out", g2, p2, False),
-            ("random-init pair out->gt", p2, g2, False),
+    return [("random-init out->gt", r4, g4), ("random-init gt->out", g4, r4),
+            ("random-init pair gt->out", g2, p2), ("random-init pair out->gt", p2, g2),
             ("random-init re_chamfer pred->gt", z(rnd_a.reshape(256, 2048, 3)),
-             z(gt.reshape(256, 2048, 3)), True)]
+             z(gt.reshape(256, 2048, 3)))]
 
 
 def check_tiled_kernels(dev, rows: dict) -> None:
@@ -1266,31 +1290,29 @@ def check_tiled_kernels(dev, rows: dict) -> None:
     gt2, pair_like = torch.cat([gt, gt], 0), torch.cat([out_a, out_b], 0)
     pair_rnd = torch.cat([rnd_a, rnd_b], 0)
     # K3 on the random-init outputs at the metrics' and the losses' shapes
-    for name, q, t, library in k3_random_init_cases(gt, gt2, rnd_a, rnd_b, pair_rnd):
-        record(rows, "nn_dyn", name, check_k3(name, q, t, library))
+    for name, q, t in k3_random_init_cases(gt, gt2, rnd_a, rnd_b, pair_rnd):
+        record(rows, "nn_dyn", name, check_k3(name, q, t))
     cases = [
-        ("completion-like out->gt", out_a[:4], gt[:4], True),
-        ("random-init out->gt", rnd_b[:4], gt[:4], True),
-        ("random-init gt->out", gt[:4], rnd_b[:4], True),
-        # cdist's (64, 16384, 16384) matrix of the pair would take 64 GiB
-        ("completion-like pair gt->out", gt2, pair_like, False),
-        ("completion-like pair out->gt", pair_like, gt2, False),
-        ("random-init pair gt->out", gt2, pair_rnd, False),
-        ("random-init pair out->gt", pair_rnd, gt2, False),
+        ("completion-like out->gt", out_a[:4], gt[:4]),
+        ("random-init out->gt", rnd_b[:4], gt[:4]),
+        ("random-init gt->out", gt[:4], rnd_b[:4]),
+        ("completion-like pair gt->out", gt2, pair_like),
+        ("completion-like pair out->gt", pair_like, gt2),
+        ("random-init pair gt->out", gt2, pair_rnd),
+        ("random-init pair out->gt", pair_rnd, gt2),
         ("completion-like re_chamfer pred->gt", out_a.reshape(256, 2048, 3),
-         gt.reshape(256, 2048, 3), True),
+         gt.reshape(256, 2048, 3)),
         ("random-init re_chamfer pred->gt", rnd_a.reshape(256, 2048, 3),
-         gt.reshape(256, 2048, 3), True),
-        ("ragged partial->out", partial[:3], out_a[:3], True),
-        ("op API gt->partial", gt[:4], partial[:4], True),
+         gt.reshape(256, 2048, 3)),
+        ("ragged partial->out", partial[:3], out_a[:3]),
+        ("op API gt->partial", gt[:4], partial[:4]),
     ]
     # the shape whose numbers stand for the kernel in the JSON line: the one
     # its main path gives it (K7 the op API, K8 the tile backend's eval batch)
     main = {"nn_pruned": "op API gt->partial", "nn_tile": "random-init out->gt"}
     for kernel in ("nn_pruned", "nn_tile"):
-        for name, q, t, library in cases:
-            record(rows, kernel, name, check_tiled(kernel, name, q.contiguous(), t.contiguous(),
-                                                   library),
+        for name, q, t in cases:
+            record(rows, kernel, name, check_tiled(kernel, name, q.contiguous(), t.contiguous()),
                    main=name == main[kernel])
 
     # K5 with K8's argmins: Morton order, no longer near-monotone in the query
@@ -2618,61 +2640,75 @@ STUDY_TOOLS = (
     ("profile_loss_ablate_torch", []),
     ("profile_loss_composites_torch", []),
 )
-# K9's shapes of phase 14's checks: the variant study's timed shape, whose
-# plan has 8 queries a thread, and two of 4: a ragged (4,3000)->16384 and
-# the JAX tool's parity shape
-VARIANT_SHAPES = ((32, 16384, 16384), (4, 3000, 16384), (2, 700, 1100))
+# K9's cases of phase 14's checks: uniform clouds at the variant study's
+# timed shape (plans of 8 queries a thread, K9's in 8 tiles), a ragged
+# (4,3000)->16384 (plans of 4, the targets split over 2 warps and 8 CTAs)
+# and the JAX tool's parity shape; and tie-heavy clouds (``tie_clouds``: a
+# 1/64 grid, ties planted inside chunks and across chunks, tiles, warps and
+# CTAs) at the first two
+VARIANT_CASES = (("uniform", (32, 16384, 16384)), ("uniform", (4, 3000, 16384)),
+                 ("uniform", (2, 700, 1100)), ("ties", (32, 16384, 16384)),
+                 ("ties", (4, 3000, 16384)))
 
 
-def check_variant(q, t) -> float:
+def check_variant(kind: str, q, t) -> float:
     """K9 in its four variants against ``nn_variant_plain`` on the card, by
-    the variant study's ``hold_variants`` (v0 and v2 bit for bit, v1 and v3
-    bit for bit but on at most a share of 1e-4 of the queries, each within
-    two ulps of e and every index realising its distance within 2e-6; v3
-    bit-equal to v1, v1 not v0), and v0 bit-equal to K4. Returns the
-    largest distance difference."""
+    the variant study's ``hold_variants``: every variant bit for bit,
+    distances and indices; v2 equal to v0, v3 to v1 and, on uniform clouds,
+    v1 not v0; and v0 bit-equal to K4. Returns the largest distance
+    difference (0)."""
     import torch
 
     from rfnet_tpu_torch.ops import chamfer, fps
-    from tools.bench_chamfer_variants_torch import VARIANTS, hold_variants, nn_variant
+    from tools.bench_chamfer_variants_torch import VARIANTS, hold_variants, nn_variant, plan_of
 
     outs = {name: nn_variant(q, t, fma=fma, eq_argmin=eq) for name, fma, eq in VARIANTS}
     k4 = chamfer.nn_dense(q, t)
     torch.cuda.synchronize()
-    shape = f"({q.shape[0]},{q.shape[1]},3)x({t.shape[0]},{t.shape[1]},3)"
+    b, n, m = q.shape[0], q.shape[1], t.shape[1]
+    shape = f"{kind} ({b},{n},3)x({b},{m},3)"
     check(all(torch.equal(a, b) for a, b in zip(outs[VARIANTS[0][0]], k4)),
           f"K9 v0 {shape}: differs from K4")
-    held = hold_variants(q, t, outs)
-    plan = chamfer._nn_scan_plan(*q.shape[:2], t.shape[1], fps._sm_count(q.device))
-    print(f"K9 nn_variant {shape}, plan {plan}: "
-          "v0 bit-equal to K4; " + "; ".join(
-              f"{k} err {v['max_abs_err']:.3g}, {v['differ']:.3g} of the queries differ, "
-              f"realised {v['realised_err']:.3g}" for k, v in held.items()))
+    held = hold_variants(q, t, outs, fma_differs=kind == "uniform")
+    sms = fps._sm_count(q.device)
+    plans = {name: plan_of(fma, eq, b, n, m, sms) for name, fma, eq in VARIANTS}
+    print(f"K9 nn_variant {shape}: every variant bit-equal to its plain version (distances "
+          f"and indices), v0 to K4, v2 to v0, v3 to v1; plans (R, G, W, C, tiles) "
+          + ", ".join(f"{k} {p}" for k, p in plans.items()))
     return max(v["max_abs_err"] for v in held.values())
 
 
 def study_run(dev, smi: str, rows: dict) -> dict:
     """Phase 14, the study path: K9 held to its plain version at
-    ``VARIANT_SHAPES``; then the tools of ``STUDY_TOOLS``, each with
+    ``VARIANT_CASES``; then the tools of ``STUDY_TOOLS``, each with
     ``--iters STUDY_ITERS`` in this process (a tool that stops fails the
     phase), the last line of each parsed as its JSON result on this card.
-    Records K9's row from the variant study's numbers; returns the
-    launches of the tools' run, K9's checked exactly."""
+    Records K9's row from the variant study's numbers (its ``ms``, plain
+    version and bound the fastest variant's), with each variant's plan, live
+    warps an SM, SASS slots a pair, issue floor and bound (its own
+    operations a pair); returns the launches of the tools' run, K9's checked
+    exactly."""
     import importlib
 
-    import numpy as np
     import torch
 
     from rfnet_tpu_torch import kernels
-    from rfnet_tpu_torch.ops import chamfer, fps
-    from tools import bench_chamfer_variants_torch
+    from rfnet_tpu_torch.ops import fps
+    from tools import bench_chamfer_variants_torch as variants
 
-    rng = np.random.RandomState(14)
-    errs = {}
-    for b, n, m in VARIANT_SHAPES:
-        q, t = (torch.from_numpy(rng.rand(b, k, 3).astype(np.float32)).to(dev) for k in (n, m))
-        errs[b, n, m] = check_variant(q, t)
-    per_thread = {chamfer._nn_scan_plan(*shape, fps._sm_count(dev))[0] for shape in errs}
+    sms = fps._sm_count(dev)
+    errs, per_thread = {}, set()
+    for kind, (b, n, m) in VARIANT_CASES:
+        plans = [variants.plan_of(f, e, b, n, m, sms) for _, f, e in variants.VARIANTS]
+        if kind == "ties":
+            q, t = variants.tie_clouds(b + n + m, b, n, m, [(plans[0], 1)] + [
+                (plans[k], variants.variant_chunk(plans[k], fma)) for k, fma in ((1, True),
+                                                                                  (2, False))])
+        else:
+            gen = torch.Generator().manual_seed(b + n + m)
+            q, t = (torch.rand(b, k, 3, generator=gen) for k in (n, m))
+        errs[kind, b, n, m] = check_variant(kind, q.to(dev), t.to(dev))
+        per_thread.update(p[0] for p in plans)
     check(per_thread == {4, 8}, f"K9's checks cover {per_thread} queries a thread, not 4 and 8")
     name = smi.rsplit(",", 1)[0].strip()
     kernels.reset_launch_counts()
@@ -2687,29 +2723,41 @@ def study_run(dev, smi: str, rows: dict) -> dict:
         results.setdefault(module, line)
         print(f"{module} {' '.join(argv)} ({time.time() - t0:.1f} s): {json.dumps(line)}")
     counts = dict(kernels.launches)
-    want = bench_chamfer_variants_torch.expected_launches(STUDY_ITERS)
+    want = variants.expected_launches(STUDY_ITERS)
     check(counts["nn_variant"] == want, f"study: K9 launched {counts['nn_variant']} times, "
           f"expected {want}")
     for k in ("fps", "nn_coords", "nn_dyn", "nn_dense", "nn_grad", "nn_tile"):
         check(counts[k] > 0, f"{k} was not launched on the study path")
     v = results["bench_chamfer_variants_torch"]
     b, n, m = v["shape"]
-    check((b, n, m) in errs, f"K9 was not held to its plain version at ({b},{n})x({m})")
-    b_ms, b_by = bound(9.0 * b * n * m, 4.0 * b * (3 * n + 3 * m + 2 * n))
-    plan = chamfer._nn_scan_plan(b, n, m, fps._sm_count(dev))
-    slots = {k: sass_variant_slots_a_pair(f, e, plan[0])
-             for k, f, e in bench_chamfer_variants_torch.VARIANTS}
-    row = dict(max_abs_err=errs[b, n, m], ms=v["variants_ms"]["v0 baseline"],
-               plain_ms=v["plain_ms"], bound_ms=b_ms, bound_by=b_by, library_ms=v["library_ms"],
-               variants_ms=v["variants_ms"], k4_ms=v["k4_ms"], plan=list(plan),
-               sass_slots_a_pair=slots, four_scans_ms=v["four_scans_ms"],
-               batched_ms=v["batched_ms"])
+    check(("uniform", b, n, m) in errs and ("ties", b, n, m) in errs,
+          f"K9 was not held to its plain version at ({b},{n})x({m})")
+    clock = sm_clock_hz()
+    slots, floor, bounds = {}, {}, {}
+    for k, f, e in variants.VARIANTS:
+        bounds[k] = bound(variants.OPS_A_PAIR[f, e] * b * n * m,
+                          4.0 * b * (3 * n + 3 * m + 2 * n))
+        slots[k] = sass_variant_slots_a_pair(f, e, v["plans"][k][0])
+        floor[k] = None if slots[k] is None else slots[k] * b * n * m / (sms * 128 * clock) * 1e3
+        want = variants.variant_live_warps(m, v["plans"][k], e) if f or e else 8
+        check(v["live_warps"][k] >= want,
+              f"K9 {k}: {v['live_warps'][k]} live warps an SM, fewer than {want}")
+    best = v["best"]
+    row = dict(max_abs_err=max(errs.values()), ms=v["variants_ms"][best], best=best,
+               plain_ms=v["plain_ms"], bound_ms=bounds[best][0], bound_by=bounds[best][1],
+               library_ms=v["library_ms"], variants_ms=v["variants_ms"], k4_ms=v["k4_ms"],
+               bounds_ms={k: x[0] for k, x in bounds.items()}, plans=v["plans"],
+               live_warps=v["live_warps"], sass_slots_a_pair=slots, issue_floor_ms=floor,
+               four_scans_ms=v["four_scans_ms"], batched_ms=v["batched_ms"])
     record(rows, "nn_variant", f"({b},{n},3)x({b},{m},3)", row, main=True)
-    print(f"K9 at ({b},{n})x({m}): " + ", ".join(
-        f"{k} {ms:.4f} ms ({fmt_ms(slots[k])} issue slots a pair)"
-        for k, ms in v["variants_ms"].items())
-          + f"; K4 {v['k4_ms']:.4f} ms, plain {v['plain_ms']:.4f} ms, cdist.min "
-          f"{v['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}); plan {plan}")
+    for k, f, e in variants.VARIANTS:
+        ms, (b_ms, b_by) = v["variants_ms"][k], bounds[k]
+        print(f"K9 {k} at ({b},{n})x({m}): {ms:.4f} ms ({b_ms / ms:.1%} of its bound "
+              f"{b_ms:.4f} ms, {b_by}, {variants.OPS_A_PAIR[f, e]} ops a pair), SASS "
+              f"{fmt_ms(slots[k])} issue slots a pair, issue floor {fmt_ms(floor[k])} ms, "
+              f"{v['live_warps'][k]} live warps an SM, plan {tuple(v['plans'][k])}")
+    print(f"K9 beside: K4 {v['k4_ms']:.4f} ms, {best}'s plain {v['plain_ms']:.4f} ms, "
+          f"cdist.min {v['library_ms']:.4f} ms ({v['library_chunk']} queries a call)")
     return counts
 
 

@@ -51,17 +51,6 @@
 // model uses; bytes are 12 per point read and 8 (20 with coords) per query
 // written. Few queries against many targets (the merge layer's 64 and 1024)
 // leave most SMs idle unless the targets are split, which W and C do.
-//
-// Variants (K9, nn_variant.cu). Two more switches of the kernel, both off
-// for K2 and K4, whose code they leave as it was:
-// - kFma: the staging pass stores m = -2t (exact) beside |t|^2, and a pair
-//   is e = fma(mx, qx, fma(my, qy, fma(mz, qz, |t|^2))): 3 FFMA instead of
-//   3 FMUL + 2 FADD + FMUL + FSUB, each fma rounded once.
-// - kEq: a warp's share of each staged tile takes two passes, the least e of
-//   the share, then the lowest j whose e equals it, and that (e, j) merges
-//   into the running best under strict <. The share's lexicographic least is
-//   the same (e, j) the one-pass scan finds, so kEq changes the work and not
-//   the result.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -102,42 +91,23 @@ __device__ __forceinline__ void scan_stage(float4* buf, const float* t, int base
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-// e of the staged target p (x, y, z, |t|^2; with kFma -2x, -2y, -2z, |t|^2)
-// and the query q.
-template <bool kFma>
-__device__ __forceinline__ float scan_e(float4 p, float qx, float qy, float qz) {
-  if constexpr (kFma) {
-    return __fmaf_rn(p.x, qx, __fmaf_rn(p.y, qy, __fmaf_rn(p.z, qz, p.w)));
-  } else {
-    return __fsub_rn(p.w, __fmul_rn(2.f, dot3(p.x, p.y, p.z, qx, qy, qz)));
-  }
-}
-
-// What a pair does with its e: kMin keeps the running best (e, j) under
-// strict <; kFirstEq, kEq's second pass, keeps in j the lowest index whose
-// e equals the value held in e, which it leaves as it is.
-enum class ScanStep { kMin, kFirstEq };
-
-template <int R, bool kFma, ScanStep kStep>
+template <int R>
 __device__ __forceinline__ void scan_target(float4 p, int j, const float (&qx)[R],
                                             const float (&qy)[R], const float (&qz)[R],
                                             float (&best)[R], int (&best_j)[R]) {
 #pragma unroll
   for (int r = 0; r < R; ++r) {
-    const float e = scan_e<kFma>(p, qx[r], qy[r], qz[r]);
-    if constexpr (kStep == ScanStep::kMin) {
-      if (e < best[r]) {
-        best[r] = e;
-        best_j[r] = j;
-      }
-    } else if (e == best[r]) {
-      best_j[r] = min(best_j[r], j);
+    const float cross = dot3(p.x, p.y, p.z, qx[r], qy[r], qz[r]);
+    const float e = __fsub_rn(p.w, __fmul_rn(2.f, cross));
+    if (e < best[r]) {
+      best[r] = e;
+      best_j[r] = j;
     }
   }
 }
 
 // The `count` targets from p on, whose first has index j in the cloud.
-template <int R, bool kFma, ScanStep kStep = ScanStep::kMin>
+template <int R>
 __device__ __forceinline__ void scan_range(const float4* p, int count, int j,
                                            const float (&qx)[R], const float (&qy)[R],
                                            const float (&qz)[R], float (&best)[R],
@@ -145,44 +115,13 @@ __device__ __forceinline__ void scan_range(const float4* p, int count, int j,
   constexpr int U = kScanPairs / R;
   for (; count >= U; count -= U, p += U, j += U) {
 #pragma unroll
-    for (int u = 0; u < U; ++u) {
-      scan_target<R, kFma, kStep>(p[u], j + u, qx, qy, qz, best, best_j);
-    }
+    for (int u = 0; u < U; ++u) scan_target<R>(p[u], j + u, qx, qy, qz, best, best_j);
   }
-  for (; count > 0; --count, ++p, ++j) {
-    scan_target<R, kFma, kStep>(*p, j, qx, qy, qz, best, best_j);
-  }
-}
-
-// kEq's form of scan_range: the least e of the range (first pass), the
-// lowest index that has it (second pass), merged under strict <.
-template <int R, bool kFma>
-__device__ __forceinline__ void scan_range_eq(const float4* p, int count, int j,
-                                              const float (&qx)[R], const float (&qy)[R],
-                                              const float (&qz)[R], float (&best)[R],
-                                              int (&best_j)[R]) {
-  float lmin[R];
-  int larg[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    lmin[r] = __int_as_float(0x7f800000);  // +inf
-    larg[r] = 0;
-  }
-  scan_range<R, kFma>(p, count, j, qx, qy, qz, lmin, larg);
-#pragma unroll
-  for (int r = 0; r < R; ++r) larg[r] = 0x7fffffff;
-  scan_range<R, kFma, ScanStep::kFirstEq>(p, count, j, qx, qy, qz, lmin, larg);
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    if (lmin[r] < best[r]) {
-      best[r] = lmin[r];
-      best_j[r] = larg[r];
-    }
-  }
+  for (; count > 0; --count, ++p, ++j) scan_target<R>(*p, j, qx, qy, qz, best, best_j);
 }
 
 // Grid (query tiles * C, b) in clusters of C; blockDim 32 * G * W.
-template <bool kCoords, int R, bool kFma = false, bool kEq = false>
+template <bool kCoords, int R>
 __global__ void __launch_bounds__(kScanMaxWarps * 32)
 nn_scan_kernel(const float* __restrict__ query, const float* __restrict__ target, int n, int m,
                int W, int tiles, float* __restrict__ dist, int* __restrict__ idx,
@@ -233,23 +172,13 @@ nn_scan_kernel(const float* __restrict__ query, const float* __restrict__ target
     __syncthreads();
     for (int p = threadIdx.x; p < cnt; p += blockDim.x) {
       const float4 v = cur[p];
-      if constexpr (kFma) {
-        cur[p] = make_float4(-2.f * v.x, -2.f * v.y, -2.f * v.z, sq3(v.x, v.y, v.z));
-      } else {
-        cur[p].w = sq3(v.x, v.y, v.z);
-      }
+      cur[p].w = sq3(v.x, v.y, v.z);
     }
     __syncthreads();
     if (warp_live) {
       const int sub = (cnt + W - 1) / W;
       const int s = min(cnt, w * sub);
-      if constexpr (kEq) {
-        scan_range_eq<R, kFma>(cur + s, min(cnt, s + sub) - s, lo + k * tile + s, qx, qy, qz,
-                               best, best_j);
-      } else {
-        scan_range<R, kFma>(cur + s, min(cnt, s + sub) - s, lo + k * tile + s, qx, qy, qz, best,
-                            best_j);
-      }
+      scan_range<R>(cur + s, min(cnt, s + sub) - s, lo + k * tile + s, qx, qy, qz, best, best_j);
     }
     if (k + 2 < nt) __syncthreads();  // every warp is done with cur before it is refilled
   }
@@ -375,7 +304,7 @@ cudaError_t nn_scan_go(Kernel kernel, int* granted, int b, int n, int m, int R, 
 // Checks the plan and launches. A plan is refused when R is not 4 or 8, G,
 // W or C is not a power of two in range, or its tiles are too few for the
 // CTA's range to fit in shared memory (a short plan).
-template <bool kCoords, bool kFma = false, bool kEq = false>
+template <bool kCoords>
 int nn_scan_launch(const void* query, const void* target, int b, int n, int m, int R, int G,
                    int W, int C, int tiles, void* dist, void* idx, void* coords, void* stream) {
   if (b <= 0 || n <= 0 || m <= 0 || tiles < 1) return cudaErrorInvalidValue;
@@ -387,11 +316,11 @@ int nn_scan_launch(const void* query, const void* target, int b, int n, int m, i
   static int granted[2] = {48 * 1024, 48 * 1024};
   switch (R) {
     case 4:
-      return nn_scan_go(nn_scan_kernel<kCoords, 4, kFma, kEq>, &granted[0], b, n, m, R, G, W,
-                        C, tiles, query, target, dist, idx, coords, stream);
+      return nn_scan_go(nn_scan_kernel<kCoords, 4>, &granted[0], b, n, m, R, G, W, C, tiles,
+                        query, target, dist, idx, coords, stream);
     case 8:
-      return nn_scan_go(nn_scan_kernel<kCoords, 8, kFma, kEq>, &granted[1], b, n, m, R, G, W,
-                        C, tiles, query, target, dist, idx, coords, stream);
+      return nn_scan_go(nn_scan_kernel<kCoords, 8>, &granted[1], b, n, m, R, G, W, C, tiles,
+                        query, target, dist, idx, coords, stream);
     default:
       return cudaErrorInvalidValue;
   }

@@ -81,8 +81,9 @@ _SIGNATURES = {
     # stream
     "nn_pruned": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P),
     "nn_tile": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P),
-    # query, target, b, n, m, the plan as for nn_dense, fma, eq_argmin,
-    # dist_out, idx_out, stream (K9, the variant study's scan)
+    # query, target, b, n, m, the plan (R, G, W, C, tiles: K4's for v0,
+    # K9's own for v1-v3), fma, eq_argmin, dist_out, idx_out, stream (K9,
+    # the variant study's scan)
     "nn_variant": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P),
 }
 

@@ -3,7 +3,9 @@
 ``tools/profile_trainstep_torch.py``) on the CPU at a tiny size: the
 benchmark's FLOP counts against ``bench.py``'s closed form and the model's
 layer shapes, its breakdown components against the JAX functions on the
-same inputs and weights, and each tool run where JAX cannot be imported."""
+same inputs and weights, and each tool run where JAX cannot be imported.
+Also ``tools/bench_torch_k1_k3.py`` past its argument parsing, with the
+card stubbed."""
 
 import importlib.util
 import json
@@ -288,3 +290,31 @@ def test_bench_refuses_a_missing_checkpoint(tmp_path, capsys):
         bench_torch.main(["--device", "cpu", "--checkpoint", str(tmp_path / "none.npz")])
     assert "no weights there" in str(exc.value.code)
     assert capsys.readouterr().out == ""
+
+
+def test_k1_k3_bench_runs_its_cases(tmp_path, monkeypatch, capsys):
+    """``tools/bench_torch_k1_k3.py`` past its argument parsing, with the card
+    and ``chip_smoke.py``'s checks stubbed: it prints ptxas' registers of
+    its kernels, hands each K3 case to ``chip_smoke.check_k3`` without the
+    older tree's library flag, and ends with 0, ``--sweep`` given or not."""
+    import chip_smoke
+    from rfnet_tpu_torch import kernels
+    from tools import bench_torch_k1_k3 as tool
+
+    (tmp_path / "build.log").write_text(
+        "ptxas info    : Compiling entry function '_ZN5rfnet13nn_dyn_kernelILi4EEEvPKf' for "
+        "'sm_90a'\nptxas info    : Used 40 registers, used 1 barriers\n")
+    calls = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(tool.subprocess, "run", lambda *a, **k: subprocess.CompletedProcess(
+        a, 0, stdout="NVIDIA H100 80GB HBM3, 700.00 W\n"))
+    monkeypatch.setattr(kernels, "build", lambda: "")
+    monkeypatch.setattr(kernels, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(tool, "k1_cases", lambda dev: [])
+    monkeypatch.setattr(tool, "k3_cases", lambda dev: [("pair", "qs", "ts", False)])
+    monkeypatch.setattr(chip_smoke, "check_k3",
+                        lambda *a: calls.append(a) or {"device_ms": 0.1})
+    for argv in ([], ["--sweep"]):
+        assert tool.main(argv) == 0
+    assert calls == [("pair", "qs", "ts")] * 2
+    assert "ptxas nn_dyn_kernel<4>: Used 40 registers" in capsys.readouterr().out

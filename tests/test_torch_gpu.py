@@ -811,30 +811,62 @@ def test_exported_forward_runs_the_kernels(cuda, tmp_path, batch_size):
         torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
+def _variant_plan(fma, eq, b, n, m, per_thread, sms):
+    """The variant's plan (K4's for v0, K9's for the others) at
+    ``per_thread`` queries a thread."""
+    from tools.bench_chamfer_variants_torch import variant_plan
+
+    if fma or eq:
+        return variant_plan(b, n, m, sms, per_thread)
+    _, _, w, c, _ = chamfer._nn_scan_plan(b, n, m, sms)
+    return chamfer._nn_scan_fill(b, n, m, per_thread, w, c, sms)
+
+
+def _hold_variant(cuda, q, t, fma, eq, per_thread):
+    """Launches K9 in the variant at ``per_thread`` queries a thread and
+    holds it to its plain version bit for bit (the study's
+    ``hold_to_plain``), v0 and v2 also to K4."""
+    from tools.bench_chamfer_variants_torch import hold_to_plain
+
+    b, n, m = q.shape[0], q.shape[1], t.shape[1]
+    plan = _variant_plan(fma, eq, b, n, m, per_thread, fps._sm_count(cuda))
+    kd = torch.empty(b, n, device=cuda)
+    ki = torch.empty(b, n, dtype=torch.int32, device=cuda)
+    before = kernels.launches["nn_variant"]
+    kernels.launch("nn_variant", cuda, q, t, b, n, m, *plan, int(fma), int(eq), kd, ki)
+    assert kernels.launches["nn_variant"] == before + 1
+    hold_to_plain(q, t, kd, ki, fma)
+    if not fma:
+        kd4, ki4 = chamfer.nn_dense(q, t)
+        assert torch.equal(kd, kd4) and torch.equal(ki, ki4)
+
+
 @pytest.mark.parametrize("per_thread", [4, 8])
 @pytest.mark.parametrize("fma,eq", [(False, False), (True, False), (False, True), (True, True)])
 @pytest.mark.parametrize("n,m", [(700, 1100), (3000, 16384), (1, 1), (70, 150)])
 def test_nn_variant_kernel_equals_plain(cuda, per_thread, fma, eq, n, m):
-    """K9 at 4 and at 8 queries a thread (the planner's split of the
-    targets) against its plain version by the study's ``hold_to_plain``:
-    without the fma bit for bit (and v0 equal to K4); with it bit for bit
-    but on at most a share of 1e-4 of the queries, each within two ulps of
-    e, every index realising its distance within 2e-6."""
-    from tools.bench_chamfer_variants_torch import hold_to_plain
-
+    """K9 at 4 and at 8 queries a thread, under each variant's plan (K4's
+    for v0, K9's own for the others, the targets split as they choose),
+    against its plain version bit for bit, distances and indices; v0 and v2
+    equal to K4."""
     q, t = (x.to(cuda) for x in _clouds(9, (2, n, 3), (2, m, 3)))
-    sms = fps._sm_count(cuda)
-    _, _, w, c, _ = chamfer._nn_scan_plan(2, n, m, sms)
-    plan = chamfer._nn_scan_fill(2, n, m, per_thread, w, c, sms)
-    kd = torch.empty(2, n, device=cuda)
-    ki = torch.empty(2, n, dtype=torch.int32, device=cuda)
-    before = kernels.launches["nn_variant"]
-    kernels.launch("nn_variant", cuda, q, t, 2, n, m, *plan, int(fma), int(eq), kd, ki)
-    assert kernels.launches["nn_variant"] == before + 1
-    hold_to_plain(q, t, kd, ki, fma)
-    if not fma and not eq:
-        kd4, ki4 = chamfer._nn_scan_launch("nn_dense", q, t, plan)
-        assert torch.equal(kd, kd4) and torch.equal(ki, ki4)
+    _hold_variant(cuda, q, t, fma, eq, per_thread)
+
+
+@pytest.mark.parametrize("per_thread", [4, 8])
+@pytest.mark.parametrize("fma,eq", [(False, False), (True, False), (False, True), (True, True)])
+def test_nn_variant_kernel_equals_plain_on_ties(cuda, per_thread, fma, eq):
+    """K9 on clouds on a 1/64 grid with ties planted inside its chunks and
+    across chunks, warps' shares and CTAs' ranges of its plan
+    (``tie_clouds``), bit-equal to its plain version: the lowest index of
+    every tie."""
+    from tools.bench_chamfer_variants_torch import tie_clouds, variant_chunk
+
+    b, n, m = 2, 700, 3000
+    plan = _variant_plan(fma, eq, b, n, m, per_thread, fps._sm_count(cuda))
+    step = variant_chunk(plan, fma) if fma or eq else 1
+    q, t = (x.to(cuda) for x in tie_clouds(15, b, n, m, [(plan, step)]))
+    _hold_variant(cuda, q, t, fma, eq, per_thread)
 
 
 def test_nn_variant_refuses_an_unknown_variant(cuda):

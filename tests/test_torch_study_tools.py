@@ -269,7 +269,7 @@ def test_tool_tiny_runs_without_jax(tiny_runs, name):
     assert line["tool"] == name.removesuffix("_torch").replace("backend_converged",
                                                                "bench_chamfer_backend")
     assert "device" not in line or line["device"]["name"] == "cpu"
-    assert "bound_ms" not in line and "library_ms" not in line
+    assert not {"bound_ms", "bounds_ms", "library_ms"} & set(line)
     if name == "backend_converged":
         assert line["weights"].endswith("rfnet_r4_105000.npz")
 

@@ -106,10 +106,10 @@ def sweep(k1) -> None:
             print(f"sweep K1 ({b},{n},3)->{npoint} plan {plan}: indices identical, {ms:.4f} ms")
 
 
-def main() -> int:
+def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--sweep", action="store_true")
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("no CUDA device available", file=sys.stderr)
         return 1
@@ -139,7 +139,10 @@ def main() -> int:
                   f"{chip_smoke.fmt_ms(on_card)} ms")
     k3 = k3_cases(dev)
     for name, qs, ts, library in k3:
-        if "device_ms" not in chip_smoke.check_k3(name, qs, ts, library):
+        # a tree with chip_smoke.library_ms times every row's yardstick (in
+        # chunks of queries where needed); an older one skips it where asked
+        extra = () if hasattr(chip_smoke, "library_ms") else (library,)
+        if "device_ms" not in chip_smoke.check_k3(name, qs, ts, *extra):
             on_card = chip_smoke.device_ms(lambda: chamfer.nn_dyn(qs, ts), 10, "nn_dyn_kernel")
             print(f"  K3 {name} on the card alone: {chip_smoke.fmt_ms(on_card)} ms")
     if args.sweep and hasattr(fps, "_fps_launch"):
