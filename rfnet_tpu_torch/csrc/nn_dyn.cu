@@ -89,7 +89,8 @@ __device__ __forceinline__ int copy_slab(float* buf, const float* t, int k, int 
 template <int S>
 __global__ void __launch_bounds__(kThreads)
 nn_dyn_kernel(const float* __restrict__ query, const float* __restrict__ target, int n, int m,
-              float* __restrict__ dist, int* __restrict__ idx) {
+              float* __restrict__ dist, int* __restrict__ idx,
+              unsigned long long* __restrict__ pairs_loaded) {
   __shared__ __align__(16) float slab[2][3 * S + 8];
   __shared__ int wants[kWarps];
   __shared__ int start;
@@ -235,6 +236,13 @@ nn_dyn_kernel(const float* __restrict__ query, const float* __restrict__ target,
     stage ^= 1;
   }
 
+  // The block loaded the slabs strictly between dn and up, each whole: it
+  // counts their targets once for each of its live queries.
+  if (pairs_loaded != nullptr && threadIdx.x == 0) {
+    const unsigned long long targets = min(m, up * S) - (dn + 1) * S;
+    atomicAdd(pairs_loaded, targets * static_cast<unsigned>(min(kQueries, n - i0)));
+  }
+
 #pragma unroll
   for (int q = 0; q < kQ; ++q) {
     const int i = i0 + kQ * threadIdx.x + q;
@@ -249,13 +257,16 @@ nn_dyn_kernel(const float* __restrict__ query, const float* __restrict__ target,
 }  // namespace
 
 // `slab` must be kSlab, the targets a shared-memory slab holds: the
-// wrapper's copy of the constant, which its callers read.
+// wrapper's copy of the constant, which its callers read. `pairs_loaded`,
+// where not null, gains the pairs of the slabs the blocks loaded: for each
+// block, its live queries times the targets of every slab it loaded.
 extern "C" int rfnet_nn_dyn(const void* query, const void* target, int b, int n, int m, int slab,
-                            void* dist, void* idx, void* stream) {
+                            void* dist, void* idx, void* pairs_loaded, void* stream) {
   if (b <= 0 || n <= 0 || m <= 0 || slab != kSlab) return cudaErrorInvalidValue;
   const dim3 grid((n + kQueries - 1) / kQueries, b);
   nn_dyn_kernel<kSlab><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(query), static_cast<const float*>(target), n, m,
-      static_cast<float*>(dist), static_cast<int*>(idx));
+      static_cast<float*>(dist), static_cast<int*>(idx),
+      static_cast<unsigned long long*>(pairs_loaded));
   return cudaGetLastError();
 }

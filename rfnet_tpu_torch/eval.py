@@ -16,7 +16,11 @@ Port of ``rfnet_tpu/eval.py``:
     timed to ``synchronize()``, the reference's convention;
   * ``--bf16`` computes the feature MLPs in bfloat16 (parameters and
     coordinates stay float32), the JAX CLI's serving mode;
-  * ``--profile_dir`` writes a ``torch.profiler`` Chrome trace of the run;
+  * ``--profile_dir`` writes a ``torch.profiler`` Chrome trace of the run,
+    which holds the package's spans (``tracing.py``: each batch's
+    ``eval.copy_in``, ``eval.metrics`` and the forward's stages by step,
+    under ``--pipeline`` inside an ``eval.dispatch``), and ``counters.json``
+    beside it (K3's loaded and dense pairs, the kernel launches);
   * ``--mesh N`` serves data-parallel over the N ranks torchrun starts (one
     card a rank with NCCL, or gloo on the CPU): every rank reads each chunk
     of ``batch_size`` clouds (a multiple of N), completes and scores its
@@ -45,10 +49,10 @@ card is an error.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import csv
 import glob
 import importlib.util
+import itertools
 import os
 import queue
 import re
@@ -67,6 +71,7 @@ from rfnet_tpu_torch.data.pcd_io import read_pcd, save_pcd
 from rfnet_tpu_torch.models import RFNet
 from rfnet_tpu_torch.ops.chamfer import chamfer_sample_means, nn_sample_mean_one
 from rfnet_tpu_torch.parallel import Mesh, make_mesh, maybe_initialize_distributed, torchrun_world
+from rfnet_tpu_torch.tracing import profile_trace, span
 
 INPUT_POINTS = 3000
 RANDOM_INIT_SEED = 1  # the JAX TrainConfig's default seed
@@ -161,33 +166,6 @@ def resolve_device(name: str | torch.device) -> torch.device:
     return device
 
 
-@contextlib.contextmanager
-def profile_trace(profile_dir: str | None, device: torch.device, name: str = "trace.json"):
-    """``torch.profiler`` around the block, as ``jax.profiler`` wraps the
-    JAX CLIs' runs: host activity, and the card's kernels and copies where
-    ``device`` is CUDA. The Chrome trace is written to
-    ``<profile_dir>/<name>`` however the block ends. Does nothing without a
-    directory."""
-    if not profile_dir:
-        yield
-        return
-    from torch.profiler import ProfilerActivity, profile
-
-    activities = [ProfilerActivity.CPU]
-    if device.type == "cuda":
-        activities.append(ProfilerActivity.CUDA)
-    os.makedirs(profile_dir, exist_ok=True)
-    prof = profile(activities=activities)
-    prof.start()
-    try:
-        yield
-    finally:
-        prof.stop()
-        path = os.path.join(profile_dir, name)
-        prof.export_chrome_trace(path)
-        print(f"profiler trace written to {path}")
-
-
 def make_complete_fn(model: RFNet, mesh: Mesh | None = None):
     """(complete, metrics) pair on the model's device. With a ``mesh`` both
     take this rank's rows of a batch, and ``metrics`` returns the per-cloud
@@ -200,13 +178,14 @@ def make_complete_fn(model: RFNet, mesh: Mesh | None = None):
 
     @torch.inference_mode()
     def metrics(partial, output, gt):
-        m1, m2 = chamfer_sample_means(output, gt)
-        scores = torch.stack([(m1 + m2) / 2, nn_sample_mean_one(partial, output)])
-        if mesh is not None:
-            whole = scores.new_zeros((2, scores.shape[1] * mesh.size))
-            whole[:, mesh.rows(whole.shape[1])] = scores
-            scores = mesh.all_reduce_(whole)
-        return scores[0], scores[1]
+        with span("eval.metrics"):
+            m1, m2 = chamfer_sample_means(output, gt)
+            scores = torch.stack([(m1 + m2) / 2, nn_sample_mean_one(partial, output)])
+            if mesh is not None:
+                whole = scores.new_zeros((2, scores.shape[1] * mesh.size))
+                whole[:, mesh.rows(whole.shape[1])] = scores
+                scores = mesh.all_reduce_(whole)
+            return scores[0], scores[1]
 
     return complete, metrics
 
@@ -255,23 +234,32 @@ def _to_device(batch: np.ndarray, device: torch.device) -> torch.Tensor:
     return t
 
 
+_dispatched = itertools.count()  # the ordinal of each dispatch()ed batch, for its span
+
+
 def dispatch(complete, metrics, pnp: np.ndarray, gnp: np.ndarray, device: torch.device):
     """Queue one batch's forward, metrics and read-back on ``device``
     without waiting for any of them; :func:`collect` waits. Returns (host
     copies of cds, emds and the completion, an event that completes with
     them): on the card ``non_blocking`` copies into pinned buffers queued
     behind the work; on the CPU the tensors themselves and no event."""
-    pb = _to_device(pnp, device)
-    completion = complete(pb)
-    out = (*metrics(pb, completion, _to_device(gnp, device)), completion)
-    if device.type != "cuda":
-        return list(out), None
-    host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in out]
-    for h, t in zip(host, out):
-        h.copy_(t, non_blocking=True)
-    done = torch.cuda.Event()
-    done.record()
-    return host, done
+    with span("eval.dispatch", batch=next(_dispatched)):
+        with span("eval.copy_in"):
+            pb = _to_device(pnp, device)
+        completion = complete(pb)
+        # the ground truth goes in behind the forward's work, so its buffer
+        # is not held across the forward's peak
+        with span("eval.copy_in"):
+            gb = _to_device(gnp, device)
+        out = (*metrics(pb, completion, gb), completion)
+        if device.type != "cuda":
+            return list(out), None
+        host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in out]
+        for h, t in zip(host, out):
+            h.copy_(t, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return host, done
 
 
 def collect(pending) -> list[np.ndarray]:
@@ -412,8 +400,9 @@ def _serve(args, device: torch.device, mesh: Mesh | None):
             # synchronize(); only the disk reads overlap
             while (item := get_item()) is not None:
                 chunk_start, chunk, pnp, gnp = item
-                pb = torch.from_numpy(pnp[mine]).to(device)
-                gb = torch.from_numpy(gnp[mine]).to(device)
+                with span("eval.copy_in"):
+                    pb = torch.from_numpy(pnp[mine]).to(device)
+                    gb = torch.from_numpy(gnp[mine]).to(device)
                 start = time.time()
                 completion = complete(pb)
                 if device.type == "cuda":
@@ -487,9 +476,10 @@ def main(argv=None):
     )
     parser.add_argument(
         "--profile_dir", default=None,
-        help="write a torch.profiler Chrome trace of the run (host activity, and the "
-        "card's kernels and copies) to <dir>/trace.json (under --mesh, "
-        "<dir>/trace_rank<r>.json a rank)",
+        help="write a torch.profiler Chrome trace of the run (host activity with the "
+        "package's spans, and the card's kernels and copies) to <dir>/trace.json and its "
+        "counters to <dir>/counters.json (under --mesh, <dir>/trace_rank<r>.json and "
+        "<dir>/counters_rank<r>.json a rank)",
     )
     parser.add_argument(
         "--mesh", type=int, default=0,

@@ -64,8 +64,9 @@ _SIGNATURES = {
     # warps splitting its targets, CTAs a cluster, tiles), dist_out, idx_out,
     # coords_out, stream
     "nn_coords": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P),
-    # query_sorted, target_sorted, b, n, m, slab, dist_out, idx_out, stream
-    "nn_dyn": (_P, _P, _I, _I, _I, _I, _P, _P, _P),
+    # query_sorted, target_sorted, b, n, m, slab, dist_out, idx_out, the
+    # loaded pairs' counter (int64; null: not counted), stream
+    "nn_dyn": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
     # query, target, b, n, m, the plan as for nn_coords, dist_out, idx_out,
     # stream
     "nn_dense": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P),

@@ -38,6 +38,7 @@ from torch.nn import functional as F
 from rfnet_tpu_torch.nn import Dense, PointMLP, StepDense
 from rfnet_tpu_torch.ops.chamfer import nearest_neighbor_coords
 from rfnet_tpu_torch.ops.fps import farthest_point_sample, gather_point
+from rfnet_tpu_torch.tracing import span
 
 
 def _bcast(x: torch.Tensor, n: int) -> torch.Tensor:
@@ -280,38 +281,55 @@ class RFNet(nn.Module):
             self.register_parameter(name, p)
 
     def forward(self, pointcloud: torch.Tensor) -> RFNetOutputs:
-        pc = pointcloud
-        state = self.init_mlp(pc)
+        with span("rfnet.forward"):
+            return self._forward(pointcloud)
+
+    def _forward(self, pc: torch.Tensor) -> RFNetOutputs:
+        # each step's four stages in a span of their own (tracing.py); they
+        # launch all of the forward's kernels but decfactor_sq's at the end
 
         # step 1: coarse = n_seed generated + n_seed moved FPS seeds
-        code_raw, state = self.cell(pc, state, 0)
-        code1 = self.recover1(code_raw, pc)
-        seed = gather_point(pc, farthest_point_sample(self.n_seed, pc))
-        moved, dstate_m = self.init_move(seed, code1)
-        partfeat = self.part_mlp(torch.cat([pc, moved], dim=1))
-        gen, dstate_g = self.init_cell(self.feat_trans(torch.cat([partfeat, code1], -1)))
-        points1 = torch.cat([gen, moved], dim=1)  # generated first
-        dstate = torch.cat([dstate_g, dstate_m], dim=1)
+        with span("rfnet.encode", step=1):
+            state = self.init_mlp(pc)
+            code_raw, state = self.cell(pc, state, 0)
+            code1 = self.recover1(code_raw, pc)
+        with span("rfnet.decode", step=1):
+            seed = gather_point(pc, farthest_point_sample(self.n_seed, pc))
+            moved, dstate_m = self.init_move(seed, code1)
+            partfeat = self.part_mlp(torch.cat([pc, moved], dim=1))
+            gen, dstate_g = self.init_cell(self.feat_trans(torch.cat([partfeat, code1], -1)))
+            points1 = torch.cat([gen, moved], dim=1)  # generated first
+            dstate = torch.cat([dstate_g, dstate_m], dim=1)
         points1_pre = points1
-        points1 = merge_layer(pc, points1, self.decline_factor0)
-        points1, dstate, _ = self.refine_layer1(points1, code1, dstate)
+        with span("rfnet.merge", step=1):
+            points1 = merge_layer(pc, points1, self.decline_factor0)
+        with span("rfnet.refine", step=1):
+            points1, dstate, _ = self.refine_layer1(points1, code1, dstate)
 
         # step 2: ×up_ratio
-        pin = torch.cat([pc, points1], dim=1)
-        code_raw, state = self.cell(pin, state, 1)
-        code2 = code1 + self.recover2(code_raw, pin)
-        points2, dstate, moves1 = self.decode_cell(code2, points1, dstate, 0)
+        with span("rfnet.encode", step=2):
+            pin = torch.cat([pc, points1], dim=1)
+            code_raw, state = self.cell(pin, state, 1)
+            code2 = code1 + self.recover2(code_raw, pin)
+        with span("rfnet.decode", step=2):
+            points2, dstate, moves1 = self.decode_cell(code2, points1, dstate, 0)
         points2_pre = points2
-        points2 = merge_layer(pc, points2, self.decline_factor1)
-        points2, dstate, _ = self.refine_layer2(points2, code2, dstate)
+        with span("rfnet.merge", step=2):
+            points2 = merge_layer(pc, points2, self.decline_factor1)
+        with span("rfnet.refine", step=2):
+            points2, dstate, _ = self.refine_layer2(points2, code2, dstate)
 
         # step 3: ×up_ratio
-        pin = torch.cat([pc, points2], dim=1)
-        code_raw, state = self.cell(pin, state, 2)
-        code3 = code2 + self.recover3(code_raw, pin)
-        points3, dstate, moves2 = self.decode_cell(code3, points2, dstate, 1)
-        points_final = merge_layer(pc, points3, self.decline_factor)
-        points_final, _, final_move = self.refine_layer_final(points_final, code3, dstate)
+        with span("rfnet.encode", step=3):
+            pin = torch.cat([pc, points2], dim=1)
+            code_raw, state = self.cell(pin, state, 2)
+            code3 = code2 + self.recover3(code_raw, pin)
+        with span("rfnet.decode", step=3):
+            points3, dstate, moves2 = self.decode_cell(code3, points2, dstate, 1)
+        with span("rfnet.merge", step=3):
+            points_final = merge_layer(pc, points3, self.decline_factor)
+        with span("rfnet.refine", step=3):
+            points_final, _, final_move = self.refine_layer_final(points_final, code3, dstate)
 
         return RFNetOutputs(
             out1=points1, out2=points2, out3=points3, out4=points_final,

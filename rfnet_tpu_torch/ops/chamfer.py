@@ -35,7 +35,7 @@ from __future__ import annotations
 
 import torch
 
-from rfnet_tpu_torch import kernels
+from rfnet_tpu_torch import kernels, tracing
 from rfnet_tpu_torch.ops.fps import _sm_count
 from rfnet_tpu_torch.ops.nn_grad import index_add_rows, nn_grad_scatter
 
@@ -315,7 +315,10 @@ def _nn_sorted_plain(qs: torch.Tensor, ts: torch.Tensor):
 
 def nn_dyn(query_sorted: torch.Tensor, target_sorted: torch.Tensor):
     """K3's wrapper: exact one-sided NN over z-SORTED clouds,
-    (dist² (b,n), idx (b,n) int32 into the sorted target)."""
+    (dist² (b,n), idx (b,n) int32 into the sorted target). While a profiler
+    records, K3 adds the pairs of the slabs its blocks loaded to the counter
+    ``k3.pairs_loaded``, and ``k3.pairs_dense`` takes b·n·m (``tracing.py``);
+    the plain version counts nothing."""
     _check_pair(query_sorted, target_sorted)
     qs = query_sorted.detach().contiguous()
     ts = target_sorted.detach().contiguous()
@@ -325,7 +328,9 @@ def nn_dyn(query_sorted: torch.Tensor, target_sorted: torch.Tensor):
     m = ts.shape[1]
     dist = torch.empty((b, n), dtype=torch.float32, device=qs.device)
     idx = torch.empty((b, n), dtype=torch.int32, device=qs.device)
-    kernels.launch("nn_dyn", qs.device, qs, ts, b, n, m, _NN_DYN_SLAB, dist, idx)
+    loaded = tracing.device_counter("k3.pairs_loaded", qs.device)
+    tracing.count("k3.pairs_dense", b * n * m)
+    kernels.launch("nn_dyn", qs.device, qs, ts, b, n, m, _NN_DYN_SLAB, dist, idx, loaded)
     return dist, idx
 
 

@@ -45,7 +45,9 @@
   histogram per parameter, under its ``state_dict`` name.
 * ``--debug_nans`` stops at the first non-finite loss term or NaN gradient
   with ``FloatingPointError`` naming the step; ``--profile_dir`` writes a
-  ``torch.profiler`` Chrome trace of the run.
+  ``torch.profiler`` Chrome trace of the run, with the forward's stage
+  spans (``tracing.py``), and ``counters.json`` beside it (K3's loaded and
+  dense pairs, the kernel launches).
 
 The model's initial weights come from a torch generator seeded by
 ``config.seed``, so they differ from the JAX package's flax init by design;
@@ -640,9 +642,10 @@ def main(argv=None):
                    help="also write one TensorBoard histogram per parameter every log step "
                    "(reads every parameter back to the host)")
     p.add_argument("--profile_dir", default=None,
-                   help="write a torch.profiler Chrome trace of the run (host activity, and "
-                   "the card's kernels and copies) to <dir>/trace.json, under a mesh one "
-                   "<dir>/trace_rank<r>.json a rank")
+                   help="write a torch.profiler Chrome trace of the run (host activity with "
+                   "the package's spans, and the card's kernels and copies) to "
+                   "<dir>/trace.json and its counters to <dir>/counters.json, under a mesh "
+                   "<dir>/trace_rank<r>.json and <dir>/counters_rank<r>.json a rank")
     p.add_argument("--debug_nans", action="store_true",
                    help="stop at the first non-finite loss term or NaN gradient with "
                    "FloatingPointError (autograd anomaly mode; slow)")

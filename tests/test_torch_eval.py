@@ -205,3 +205,26 @@ def test_eval_profile_dir_writes_a_parseable_trace(tmp_path, rng):
     with open(os.path.join(prof, "trace.json")) as f:
         events = json.load(f)["traceEvents"]
     assert any("aten::" in e.get("name", "") for e in events)
+
+
+def test_eval_profile_dir_writes_counters_beside_the_trace(tmp_path, rng):
+    """``counters.json`` beside ``trace.json``: the counters of the run (none
+    on the CPU, whose plain scans count nothing) and the kernel launches;
+    the trace holds the serving loop's and the model's spans."""
+    from rfnet_tpu_torch import kernels
+
+    list_path = _fixtures(str(tmp_path), rng, ["0001/a", "0001/b"])
+    ckpt = os.path.join(tmp_path, "model.pt")
+    torch.save(teval.RFNet(n_seed=4, up_ratio=4).state_dict(), ckpt)
+    prof = os.path.join(tmp_path, "prof")
+    teval.main(["--list_path", list_path, "--data_dir", os.path.join(tmp_path, "data"),
+                "--checkpoint", ckpt, "--results_dir", os.path.join(tmp_path, "r"),
+                "--num_gt_points", "128", "--device", "cpu", "--profile_dir", prof])
+    assert sorted(os.listdir(prof)) == ["counters.json", "trace.json"]
+    with open(os.path.join(prof, "counters.json")) as f:
+        counts = json.load(f)
+    assert counts == {"counters": {}, "launches": dict(kernels.launches)}
+    with open(os.path.join(prof, "trace.json")) as f:
+        names = [e.get("name") for e in json.load(f)["traceEvents"]]
+    assert names.count("eval.copy_in") == 2 and names.count("rfnet.forward") == 2
+    assert names.count("eval.metrics") == 2 and names.count("rfnet.merge") == 6

@@ -874,3 +874,71 @@ def test_nn_variant_refuses_an_unknown_variant(cuda):
     out = (torch.empty(1, 40, device=cuda), torch.empty(1, 40, dtype=torch.int32, device=cuda))
     with pytest.raises(RuntimeError, match="invalid argument"):
         kernels.launch("nn_variant", cuda, q, t, 1, 40, 60, 4, 1, 1, 1, 1, 2, 0, *out)
+
+
+# K3's loaded pairs (tracing.py's ``k3.pairs_loaded``): the walk's cases of
+# tests/test_torch_nn_dyn_walk.py, each tiled four times (as its test at the
+# kernel's sizes does) to span several slabs and blocks
+def _walk_case(name):
+    from test_torch_nn_dyn_walk import CASES
+
+    q, t = (torch.from_numpy(np.concatenate([a + k * np.float32(0.01) for k in range(4)])
+                             .astype(np.float32))[None] for a in CASES[name])
+    return chamfer.sort_by_z_with_order(q)[0], chamfer.sort_by_z_with_order(t)[0]
+
+
+def _counted(qs, ts):
+    """K3 under a profiler: (dist, idx, the counters)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from rfnet_tpu_torch import tracing
+
+    tracing.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        d, i = chamfer.nn_dyn(qs, ts)
+    counts = tracing.counters()
+    tracing.reset()
+    return d, i, counts
+
+
+@pytest.mark.parametrize("name", ["all points equal", "all z equal", "blob->spread", "blobs",
+                                  "dup targets", "duplicates across slab boundaries",
+                                  "line, many slabs", "m < slab, n < warp", "one target",
+                                  "spread->blob", "tie at the down frontier"])
+def test_nn_dyn_counts_the_pairs_its_blocks_loaded(cuda, name):
+    """K3's counter equals the walk's loaded pairs (the targets of the
+    slabs each query's block loaded) at the kernel's sizes; ``k3.pairs_dense``
+    is b·n·m; distances and indices are the same bits with the counter on and
+    off. Two copies of the pair in one launch count twice."""
+    from test_torch_nn_dyn_walk import _walk
+
+    qs, ts = _walk_case(name)
+    _, _, loaded, _ = _walk(qs[0], ts[0], slab=chamfer._NN_DYN_SLAB, tile=256, warp_q=64,
+                            chunk=32)
+    n, m = qs.shape[1], ts.shape[1]
+    off_d, off_i = chamfer.nn_dyn(qs.to(cuda), ts.to(cuda))
+    d, i, counts = _counted(qs.to(cuda), ts.to(cuda))
+    assert counts == {"k3.pairs_loaded": int(loaded.sum()), "k3.pairs_dense": n * m}
+    torch.testing.assert_close(d, off_d, rtol=0, atol=0)
+    torch.testing.assert_close(i, off_i, rtol=0, atol=0)
+    _, _, twice = _counted(qs.repeat(2, 1, 1).to(cuda), ts.repeat(2, 1, 1).to(cuda))
+    assert twice == {k: 2 * v for k, v in counts.items()}
+
+
+# ptxas' registers a thread of K3 as built before it gained the counter
+NN_DYN_REGISTERS = 32
+
+
+def test_nn_dyn_registers_unchanged_by_the_counter(cuda):
+    """``_build/build.log`` (ptxas -v) gives K3 the registers it had before
+    the counter."""
+    import os
+    import re
+
+    kernels.build()
+    with open(os.path.join(kernels.BUILD_DIR, "build.log")) as f:
+        log = f.read()
+    entry = re.search(r"Compiling entry function '\w*nn_dyn_kernel\w*'.*?Used (\d+) registers",
+                      log, re.S)
+    assert entry, "build.log reports no registers for nn_dyn_kernel"
+    assert int(entry.group(1)) == NN_DYN_REGISTERS

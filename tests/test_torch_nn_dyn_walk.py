@@ -9,15 +9,15 @@ inside a slab each warp's 32-target chunks skipped by their box. The walk
 must equal the full plain scan bit for bit, and what it loads and scans must
 cover each query's exact z-slab. K1's plan (cluster size, register or
 streaming form) is plain Python; the 70 000-point FPS that K1 once refused
-is held to the JAX package's.
+is held to the JAX package's. Imports JAX only in that test, so the card's
+tests (``tests/test_torch_gpu.py``) take :func:`_walk` and the walk's cases
+from here on a machine without it.
 """
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from rfnet_tpu.ops import fps as jfps
 from rfnet_tpu_torch.ops import chamfer, fps
 
 INT_MAX = np.iinfo(np.int32).max
@@ -233,6 +233,10 @@ def test_fps_plan_holds_every_cloud(sms):
 def test_fps_70000_points_equals_jax():
     """The cloud size K1 once refused: the plain version equals the JAX
     package's ``farthest_point_sample`` index for index."""
+    import jax.numpy as jnp
+
+    from rfnet_tpu.ops import fps as jfps
+
     xyz = np.random.RandomState(70).rand(1, 70000, 3).astype(np.float32)
     ours = fps.farthest_point_sample(16, _t(xyz)).numpy()
     want = np.asarray(jfps.farthest_point_sample(16, jnp.asarray(xyz)))

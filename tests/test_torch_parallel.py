@@ -328,7 +328,7 @@ def test_distributed_ranks_train_on_disjoint_shards(w2, root):
     equal a one-process step's on their concatenation (rtol 2e-5), and the
     checkpointed parameters are, bit for bit, the Adam update from the mean
     of the two shards' one-process gradients; ``--profile_dir`` wrote one
-    trace a rank."""
+    trace and its counters a rank."""
     steps = [res["seen"] for res in w2["distributed"]]
     assert [len(s) for s in steps] == [1, 1] and all(s[0][0].shape[0] == 2 for s in steps)
     rows = [(s[0][0].numpy(), s[0][1].numpy()) for s in steps]
@@ -345,7 +345,8 @@ def test_distributed_ranks_train_on_disjoint_shards(w2, root):
     here = _ranks_here(init, rows)
     assert all(torch.equal(saved[k], here["params"][k]) for k in saved)
     assert "dataflow shard 1 of 2" in w2["distributed"][1]["stdout"]
-    assert sorted(os.listdir(root / "w2_prof")) == ["trace_rank0.json", "trace_rank1.json"]
+    assert sorted(os.listdir(root / "w2_prof")) == ["counters_rank0.json", "counters_rank1.json",
+                                                    "trace_rank0.json", "trace_rank1.json"]
 
 
 def test_debug_nans_stops_every_rank_at_the_same_step(w2):
