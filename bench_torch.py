@@ -130,13 +130,31 @@ def forward_scan_flops(config: TrainConfig) -> float:
     return 8.0 * ((n1 + n2 + config.ptnum) + config.n_seed) * config.innum
 
 
+def _point_cols(model: RFNet) -> dict[str, int]:
+    """The per-point input columns of each layer whose input also holds a
+    per-cloud block (a codeword, the state or a max-pool, multiplied once a
+    cloud); the rest of its input columns are that block's."""
+    cols = {"cell.state_mlp.l0": 3, "init_move.mlp.l0": 3, "init_move.featmlp.l0": 3,
+            "init_move.ptsmlp.l0": 3, "init_cell.state_mlp.l0": 16,
+            "decode_cell.mask_mlp.l0": 3,
+            "decode_cell.state_mlp.l0": model.decode_cell.mlp.l1.weight.shape[0]}
+    for k in (1, 2, 3):
+        cols[f"recover{k}.mlp.l0"] = 3
+    for name in ("refine_layer1", "refine_layer2", "refine_layer_final"):
+        cols[f"{name}.self_mlp.l0"] = cols[f"{name}.mlp.l0"] = 3
+        cols[f"{name}.feat_mlp.l0"] = 3 + getattr(model, name).feat_out.weight.shape[0]
+    return cols
+
+
 def forward_layer_costs(model: RFNet, innum: int) -> tuple[float, float]:
     """(matmul FLOPs, activation elements) of one cloud of ``innum`` points
-    through ``model``'s forward, in closed form: 2·rows·in·out and
-    rows·(in + out) over every Dense/StepDense, rows being the points the
-    architecture hands the layer at each call, plus InitDecodeLayer's 3×3
-    product (2·9 a seed). The elements are each layer's input read once and
-    its output written once."""
+    through ``model``'s forward, in closed form: 2·(rows·in_point +
+    in_cloud)·out and rows·in_point + in_cloud + rows·out over every
+    Dense/StepDense, rows being the points the architecture hands the layer
+    at each call, in_cloud the input columns of a per-cloud block (multiplied
+    once a cloud, :func:`_point_cols`) and in_point the others, plus
+    InitDecodeLayer's 3×3 product (2·9 a seed). The elements are each
+    layer's input read once and its output written once."""
     n, s, u = innum, model.n_seed, model.decode_cell.up_ratio
     p1, p2, p3 = 2 * s, 2 * s * u, 2 * s * u * u
     encode = (n, n + p1, n + p2)  # the shared cell, once a step
@@ -151,6 +169,7 @@ def forward_layer_costs(model: RFNet, innum: int) -> tuple[float, float]:
         "decode_cell": (p1, p2),
         "refine_layer1": (p1,), "refine_layer2": (p2,), "refine_layer_final": (p3,),
     }
+    point_cols = _point_cols(model)
     flops, elems = 2.0 * 9 * s, 0.0
     for name, module in model.named_modules():
         if not isinstance(module, (Dense, StepDense)):
@@ -159,8 +178,11 @@ def forward_layer_costs(model: RFNet, innum: int) -> tuple[float, float]:
         if len(calls) != 1:
             raise ValueError(f"{name}: no single row count in forward_layer_costs")
         out_ch, in_ch = module.weight.shape
-        flops += 2.0 * sum(calls[0]) * in_ch * out_ch
-        elems += float(sum(calls[0])) * (in_ch + out_ch)
+        in_point = point_cols.get(name, in_ch)
+        for r in calls[0]:
+            inputs = r * in_point + in_ch - in_point
+            flops += 2.0 * inputs * out_ch
+            elems += float(inputs + r * out_ch)
     return flops, elems
 
 

@@ -13,9 +13,12 @@ sharing is the reference's:
   * the ``recover*`` and ``refine_layer*`` modules are per step;
   * codewords are residual: code2 = code1 + Δ, code3 = code2 + Δ.
 
-All tensors are channels-last ``(b, npts, c)``. FPS runs through kernel K1
-and each merge's nearest-neighbour scan through kernel K2 when the input is
-on the card.
+All tensors are channels-last ``(b, npts, c)``. A layer whose input joins
+per-point columns with a per-cloud vector ``(b, 1, c)`` (a codeword, the
+state, a max-pooled feature) takes them as a list of blocks and multiplies
+the per-cloud one once a cloud (:mod:`rfnet_tpu_torch.nn`). FPS runs through
+kernel K1 and each merge's nearest-neighbour scan through kernel K2 when the
+input is on the card.
 
 ``RFNet(dtype=torch.bfloat16)`` computes the feature MLPs in bfloat16, as
 the JAX ``RFNet(dtype=jnp.bfloat16)`` does, with the same dtype flow: a
@@ -41,11 +44,6 @@ from rfnet_tpu_torch.ops.fps import farthest_point_sample, gather_point
 from rfnet_tpu_torch.tracing import span
 
 
-def _bcast(x: torch.Tensor, n: int) -> torch.Tensor:
-    """(b, 1, c) -> (b, n, c)."""
-    return x.expand(x.shape[0], n, x.shape[-1])
-
-
 class GlobalMLP(nn.Module):
     """Per-point MLP + max-pool codeword (``global_mlp``)."""
 
@@ -69,8 +67,7 @@ class EncodeCell(nn.Module):
         self.code_mlp = PointMLP(state_len, mlpout, n_steps=n_steps, generator=g, dtype=dtype)
 
     def forward(self, pts, state, step: int):
-        x = torch.cat([pts, _bcast(state, pts.shape[1])], -1)
-        x = F.relu(self.state_end(self.state_mlp(x, step), step))
+        x = F.relu(self.state_end(self.state_mlp([pts, state], step), step))
         new_state = torch.amax(x, dim=1, keepdim=True)
         return self.code_mlp(new_state, step), new_state
 
@@ -84,7 +81,7 @@ class RecoverCell(nn.Module):
         self.out = Dense(mlp2[-1], mlp2[-1], g, dtype)
 
     def forward(self, code, pts):
-        x = self.mlp(torch.cat([_bcast(code, pts.shape[1]), pts], -1))
+        x = self.mlp([code, pts])
         return self.out(torch.amax(x, dim=1, keepdim=True))
 
 
@@ -102,10 +99,8 @@ class InitMoveLayer(nn.Module):
         self.ptsout = Dense(mlp2[-1], 3, g, dtype)
 
     def forward(self, startpts, code):
-        k = startpts.shape[1]
-        t1 = torch.cat([startpts, _bcast(code, k)], -1)
-        maxt = torch.amax(self.mlp(t1), dim=1, keepdim=True)
-        t = torch.cat([t1, _bcast(maxt, k)], -1)
+        maxt = torch.amax(self.mlp([startpts, code]), dim=1, keepdim=True)
+        t = [startpts, code, maxt]
         feats = F.relu(self.featout(self.featmlp(t)))
         pts = torch.tanh(self.ptsout(self.ptsmlp(t)))
         return startpts + pts, feats
@@ -134,7 +129,7 @@ class InitDecodeLayer(nn.Module):
         pts = torch.tanh(raw[..., : 3 * p]).reshape(b, p, 3)
         pts = torch.einsum("bnc,bcd->bnd", pts, transmat) + movemat
         st = F.relu(self.state_out(x)).reshape(b, p, 16)
-        st = self.state_mlp(torch.cat([st, _bcast(x, p)], -1))
+        st = self.state_mlp([st, x])
         return pts, F.relu(self.state_outo(st))
 
 
@@ -167,8 +162,7 @@ class DecodeCell(nn.Module):
 
     def forward(self, code, center, state, step: int):
         b, n, _ = center.shape
-        code_n = _bcast(code, n)
-        mask = self.mask_mlp(torch.cat([center, code_n], -1), step)
+        mask = self.mask_mlp([center, code], step)
         mask = F.relu(self.mask_out(mask, step))
         info = F.relu(self.input_trans(mask * code, step))
         sinfo = F.relu(self.state_trans(state, step))
@@ -177,7 +171,7 @@ class DecodeCell(nn.Module):
         p = torch.tanh(self.points_out(p, step))
         moves = p.reshape(b, n, self.up_ratio, 3)
         pts = (center[:, :, None, :] + moves).reshape(b, n * self.up_ratio, 3)
-        cur = self.state_mlp(torch.cat([x, code_n], -1), step)
+        cur = self.state_mlp([x, code], step)
         branches = []
         for i in range(self.up_ratio):
             # branch i feeds branch i+1, as the reference chains them
@@ -202,14 +196,12 @@ class RefineLayer(nn.Module):
         self.feat_out = Dense(mlp2[-1], feat2_ch, g, dtype)
 
     def forward(self, pts, feat, feat2):
-        n = pts.shape[1]
-        feat_n = _bcast(feat, n)
-        t = self.self_mlp(torch.cat([pts, feat_n], -1))
+        t = self.self_mlp([pts, feat])
         maxt = torch.amax(t, dim=1, keepdim=True)
-        t = self.mlp(torch.cat([pts, _bcast(maxt, n)], -1))
+        t = self.mlp([pts, maxt])
         move = torch.tanh(self.out(t))
         new_pts = pts + move
-        s = self.feat_mlp(torch.cat([new_pts, feat2, feat_n], -1))
+        s = self.feat_mlp([new_pts, feat2, feat])
         s = torch.tanh(self.feat_out(s))
         return new_pts, feat2 + s, move
 

@@ -27,8 +27,11 @@ Spans of a serving batch (``eval.dispatch`` and the model): ``eval.dispatch``
 ``eval.metrics``; inside ``rfnet.forward``, for each recurrent step 1-3 (the
 ``step`` arg), ``rfnet.encode``, ``rfnet.decode``, ``rfnet.merge`` and
 ``rfnet.refine``. Counters: ``k3.pairs_loaded`` (K3's blocks: the targets of
-every slab a block loaded, times its live queries) and ``k3.pairs_dense``
-(b·n·m of the same launches).
+every slab a block loaded, times its live queries), ``k3.pairs_dense``
+(b·n·m of the same launches), and for every dense layer call
+``dense.macs_per_point`` (the multiply-adds it did at every point) and
+``dense.macs_per_cloud_saved`` (those over per-cloud columns that it did
+once a cloud instead, ``nn.py``).
 """
 
 from __future__ import annotations
@@ -55,6 +58,11 @@ def span(name: str, **args):
     if not _profiler._is_profiler_enabled:
         return _OFF
     return _RecordFunctionFast(name, (), args)
+
+
+def active() -> bool:
+    """Whether a profiler records (spans and counters are on)."""
+    return _profiler._is_profiler_enabled
 
 
 def count(name: str, n: int) -> None:

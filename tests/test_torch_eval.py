@@ -208,9 +208,10 @@ def test_eval_profile_dir_writes_a_parseable_trace(tmp_path, rng):
 
 
 def test_eval_profile_dir_writes_counters_beside_the_trace(tmp_path, rng):
-    """``counters.json`` beside ``trace.json``: the counters of the run (none
-    on the CPU, whose plain scans count nothing) and the kernel launches;
-    the trace holds the serving loop's and the model's spans."""
+    """``counters.json`` beside ``trace.json``: the counters of the run (on
+    the CPU the dense layers' two alone: the plain scans count nothing) and
+    the kernel launches; the trace holds the serving loop's and the model's
+    spans."""
     from rfnet_tpu_torch import kernels
 
     list_path = _fixtures(str(tmp_path), rng, ["0001/a", "0001/b"])
@@ -223,7 +224,10 @@ def test_eval_profile_dir_writes_counters_beside_the_trace(tmp_path, rng):
     assert sorted(os.listdir(prof)) == ["counters.json", "trace.json"]
     with open(os.path.join(prof, "counters.json")) as f:
         counts = json.load(f)
-    assert counts == {"counters": {}, "launches": dict(kernels.launches)}
+    assert counts["launches"] == dict(kernels.launches)
+    dense = counts.pop("counters")
+    assert sorted(dense) == ["dense.macs_per_cloud_saved", "dense.macs_per_point"]
+    assert min(dense.values()) > 0 and counts == {"launches": dict(kernels.launches)}
     with open(os.path.join(prof, "trace.json")) as f:
         names = [e.get("name") for e in json.load(f)["traceEvents"]]
     assert names.count("eval.copy_in") == 2 and names.count("rfnet.forward") == 2

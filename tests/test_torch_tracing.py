@@ -6,20 +6,31 @@ profiler around them or not. Under a CPU ``torch.profiler`` one served batch
 records exactly its spans: ``eval.dispatch`` (with the batch's ordinal),
 inside it ``eval.copy_in`` (the partial), ``rfnet.forward``, ``eval.copy_in``
 (the ground truth) and ``eval.metrics``, and the forward's four stages for
-each of its three steps, in step order. An exported forward holds no
-profiler node. K3's counter is checked on the card (``tests/test_torch_gpu.py``).
+each of its three steps, in step order. The dense layers' two counters read
+the published widths' closed form. An exported forward holds no profiler
+node. K3's counter is checked on the card (``tests/test_torch_gpu.py``).
 """
+
+import re
 
 import numpy as np
 import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from benchmark import flops
 from rfnet_tpu_torch import eval as teval
 from rfnet_tpu_torch import export, tracing
 from rfnet_tpu_torch.models import RFNet
 
 CPU = torch.device("cpu")
+PUBLISHED = {"innum": 3000, "n_seed": 32, "up_ratio": 16, "state_len": 256}
+# the input columns of each layer (``flops.forward_layers``' names) that hold
+# one vector a cloud: a codeword, the state or a max-pool
+CLOUD_COLS = {r"cell\d\.state_mlp\.l0": 256, r"recover\d\.mlp\.l0": 256,
+              r"init_move\.mlp\.l0": 256, r"init_move\.(feat|pts)mlp\.l0": 512,
+              r"init_cell\.state_mlp\.l0": 256, r"decode\d\.(mask|state)_mlp\.l0": 256,
+              r"refine\w+\.(self|feat)_mlp\.l0": 256, r"refine\w+\.mlp\.l0": 128}
 STAGES = ("rfnet.encode", "rfnet.decode", "rfnet.merge", "rfnet.refine")
 NAMES = {"eval.dispatch", "eval.copy_in", "eval.metrics", "rfnet.forward", *STAGES}
 
@@ -137,3 +148,27 @@ def test_export_holds_no_profiler_node():
     exported = export.export_forward(_model(), 2, innum=64)
     targets = [str(n.target) for n in exported.graph.nodes if n.op == "call_function"]
     assert targets and not [t for t in targets if "profiler" in t or "record_function" in t]
+
+
+def test_dense_counters_read_the_published_closed_form():
+    """One forward of the published widths at batch 1: the multiply-adds
+    over per-cloud columns done once a cloud instead of at every point, and
+    those done at every point, equal their closed forms from the published
+    layer list (2.837e9 and 5.296e9, a share of 34.89 %). With no profiler
+    neither counter is added to."""
+    saved = point = 0
+    for layer in flops.forward_layers(PUBLISHED):
+        cols = [c for k, c in CLOUD_COLS.items() if re.fullmatch(k, layer.name)]
+        cloud = cols[0] if cols else 0
+        saved += layer.rows * cloud * layer.d_out
+        point += layer.rows * (layer.d_in - cloud) * layer.d_out
+    assert (saved, point) == (2_837_446_656, 5_296_123_904)
+    model = RFNet(generator=torch.Generator().manual_seed(5)).eval()
+    x = np.random.RandomState(3).rand(1, PUBLISHED["innum"], 3).astype(np.float32)
+    _forward(model, x)
+    assert tracing.counters() == {}
+    _profiled(_forward, model, x)
+    got = tracing.counters()
+    assert (got["dense.macs_per_cloud_saved"], got["dense.macs_per_point"]) == (saved, point)
+    share = 100 * saved / (saved + point)
+    assert round(share, 2) == 34.89
