@@ -151,10 +151,15 @@
    row of the JSON line comes from the variant study's numbers, with each
    variant's plan, live warps an SM (at least the plan's design), SASS
    slots a pair and issue floor;
-15. prints whether the native .pcd codec was built and how often it read,
+15. K10 (``csrc/knn.cu``, SnowflakeNet's top-16 k-NN) bit for bit against
+   its plain version at every shape of the model's forward at batch 32
+   (``SNOWFLAKE_KNN``), on uniform clouds and on a 1/8 grid (exact ties),
+   timed beside the plain version and ``torch.cdist`` + ``topk``
+   (``knn_run``, callable alone);
+16. prints whether the native .pcd codec was built and how often it read,
    the per-kernel JSON line (with the converged b32 step's times; each
    kernel's launches on every path, the preload, online, pipeline, bf16,
-   mesh, export, protocol, bench, verify and study ones among them; "mesh"
+   mesh, export, protocol, bench, verify, study and knn ones among them; "mesh"
    is rank 0's of the W=2 host-path run, "export" the b4 artifact's 4
    batches), then ``{"ok": true, "device": ...}``.
 
@@ -2761,6 +2766,54 @@ def study_run(dev, smi: str, rows: dict) -> dict:
     return counts
 
 
+# (queries, targets) of every k-NN of SnowflakeNet's forward at its
+# published PCN widths, at batch 32 (benchmark/flops_snowflake.py:knn_calls)
+SNOWFLAKE_KNN = ((512, 2048), (512, 512), (128, 512), (128, 128), (2048, 2048))
+
+
+def knn_run(dev) -> tuple[dict, dict]:
+    """Phase 15: K10 (SnowflakeNet's top-16 k-NN, ``csrc/knn.cu``) against
+    its plain version at every shape of the model's forward at batch 32,
+    bit for bit in distances and indices, on uniform clouds and on a
+    1/8 grid (exact ties: the lower index first; each point its own first
+    neighbour at 0); times the wrapper, the card's kernel alone, the plain
+    version and ``torch.cdist`` + ``topk`` (the library's k-NN). Returns
+    (K10's row, the phase's launches)."""
+    import numpy as np
+    import torch
+
+    from rfnet_tpu_torch import kernels
+    from rfnet_tpu_torch.ops import knn
+
+    kernels.reset_launch_counts()
+    rng = np.random.RandomState(15)
+    shapes, row = [], {}
+    for nq, m in SNOWFLAKE_KNN:
+        t = torch.from_numpy(rng.rand(32, m, 3).astype(np.float32)).to(dev)
+        q = t[:, :nq].contiguous() if nq < m else t
+        for cloud, (qq, tt) in (("uniform", (q, t)), ("grid", ((q * 8).floor() / 8,
+                                                              (t * 8).floor() / 8))):
+            kd, ki = knn.knn(16, tt, qq)
+            pd, pi = knn._knn_plain(16, tt, qq)
+            check(torch.equal(kd, pd) and torch.equal(ki, pi),
+                  f"K10 ({nq}, {m}) {cloud}: differs from the plain version")
+            check(bool((kd[..., 0] == 0).all()), f"K10 ({nq}, {m}) {cloud}: self not first at 0")
+        ms = cuda_ms(lambda: knn.knn(16, t, q), 20)
+        dev_ms = device_ms(lambda: knn.knn(16, t, q), 10, "knn_kernel")
+        plain_ms = cuda_ms(lambda: knn._knn_plain(16, t, q), 3)
+        lib_ms = cuda_ms(lambda: torch.cdist(q, t).topk(16, largest=False), 10)
+        b_ms, b_by = bound(8.0 * 32 * nq * m, 32 * (12.0 * (nq + m) + 8 * 16 * nq))
+        shape = f"(32,{nq},3)x(32,{m},3)"
+        print(f"K10 knn {shape}: bit-equal to the plain version (uniform and grid clouds); "
+              f"wrapper {ms:.4f} ms, card {fmt_ms(dev_ms)} ms, plain {plain_ms:.4f} ms, "
+              f"cdist+topk {lib_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
+        shapes.append(dict(shape=shape, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                           library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
+        row = dict(max_abs_err=0.0, **shapes[-1])  # the largest, stage 2's, last
+    row["shapes"] = shapes
+    return row, dict(kernels.launches)
+
+
 def main() -> int:
     import torch
 
@@ -2821,6 +2874,9 @@ def main() -> int:
         t_study = time.time()
         study_counts = study_run(dev, smi, rows)
         print(f"phase 14 (study): {time.time() - t_study:.1f} s")
+        t_knn = time.time()
+        rows["knn"], knn_counts = knn_run(dev)
+        print(f"phase 15 (K10): {time.time() - t_knn:.1f} s")
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 
@@ -2832,18 +2888,20 @@ def main() -> int:
            "emd_cost": ("emd_cost.cu", "rfnet_tpu/ops/pallas/emd.py:347", "train"),
            "nn_pruned": ("nn_pruned.cu", "rfnet_tpu/ops/pallas/chamfer_pruned.py:128", "ops"),
            "nn_tile": ("nn_tile.cu", "rfnet_tpu/ops/pallas/chamfer_tile.py:214", "tile"),
-           "nn_variant": ("nn_variant.cu", "tools/bench_chamfer_variants.py:42", "study")}
+           "nn_variant": ("nn_variant.cu", "tools/bench_chamfer_variants.py:42", "study"),
+           "knn": ("knn.cu", "none: SnowflakeNet's k-NN, new in the port", "knn")}
     by_path = {"serve": serve_counts, "train": train_counts, "lmdb": lmdb_counts,
                "ops": ops_counts, "tile": tile_counts, "preload": preload_counts,
                "online": online_counts, "pipeline": pipeline_counts, "bf16": bf16_counts,
                "mesh": mesh_counts["mesh"], "export": export_counts, "protocol": protocol_counts,
-               "bench": bench_counts, "verify": verify_counts, "study": study_counts}
+               "bench": bench_counts, "verify": verify_counts, "study": study_counts,
+               "knn": knn_counts}
     for name, (_, _, path) in src.items():
         check(by_path[path][name] > 0, f"{name} was not launched on the {path} path")
     for name in ("fps", "nn_coords"):
         check(export_counts[name] > 0, f"{name} was not launched on the export path")
-    for name in src:  # K9 runs on the study path alone
-        check(name == "nn_variant" or verify_counts[name] > 0,
+    for name in src:  # K9 runs on the study path alone, K10 on SnowflakeNet's
+        check(name in ("nn_variant", "knn") or verify_counts[name] > 0,
               f"{name} was not launched on the verify path")
     for name in ("fps", "nn_coords", "nn_dyn", "nn_dense", "nn_grad", "emd_cost"):
         check(protocol_counts[name] > 0, f"{name} was not launched on the protocol path")

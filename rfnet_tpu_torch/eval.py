@@ -28,6 +28,11 @@ Port of ``rfnet_tpu/eval.py``:
     per-cloud metrics; rank 0 writes ``results.csv`` and prints, each rank
     writes the plots and ``.pcd`` files of its rows.
 
+``--model`` picks the network: ``rfnet`` (the default, the JAX CLI's) or
+``snowflakenet`` (``models/snowflakenet.py``, served at its published PCN
+widths); without it, a checkpoint's keys tell. Each partial is resampled to
+the model's input size (RFNet 3 000 points, SnowflakeNet 2 048).
+
 Weights (``--checkpoint``, default ``./bestrecord`` as in the JAX CLI)
 come from a directory: the trainer's ``bestrecord/`` (its ``model.pt``) or
 its workdir (the ``"model"`` entry of the newest ``ckpt_<step>.pt``); or
@@ -36,13 +41,16 @@ from a file: a trainer checkpoint ``ckpt_<step>.pt``, a ``torch.save``d
 array}``, with the training step under ``__step__``), such as the converged
 ``weights/rfnet_r4_105000.npz`` that ``tools/export_torch_weights.py``
 writes; legacy shared step biases are upgraded on the way
-(``compat.ckpt_compat``). The model's size is read off the weights. Runs on
+(``compat.ckpt_compat``). The model's size is read off the weights; a
+SnowflakeNet comes from a ``state_dict`` (``.pt``) under its module names.
+Where there are no weights, the model is a random init from a seed. Runs on
 ``--device cuda`` unless asked for ``cpu``; a request for ``cuda`` without a
 card is an error.
 
     python -m rfnet_tpu_torch.eval --list_path test.list --data_dir test \\
         --checkpoint weights/rfnet_r4_105000.npz --results_dir results/recon \\
         --batch_size 4 [--pipeline] [--bf16] [--profile_dir trace/]
+    python -m rfnet_tpu_torch.eval --model snowflakenet --checkpoint snowflake.pt ...
     torchrun --nproc_per_node 2 -m rfnet_tpu_torch.eval --mesh 2 ... --batch_size 4
 """
 
@@ -69,11 +77,13 @@ from rfnet_tpu_torch.compat.convert import flax_to_state_dict
 from rfnet_tpu_torch.data.dataset import resample_pcd
 from rfnet_tpu_torch.data.pcd_io import read_pcd, save_pcd
 from rfnet_tpu_torch.models import RFNet
+from rfnet_tpu_torch.models.snowflakenet import SnowflakeNet
 from rfnet_tpu_torch.ops.chamfer import chamfer_sample_means, nn_sample_mean_one
 from rfnet_tpu_torch.parallel import Mesh, make_mesh, maybe_initialize_distributed, torchrun_world
 from rfnet_tpu_torch.tracing import profile_trace, span
 
-INPUT_POINTS = 3000
+INPUT_POINTS = 3000  # RFNet's; a model with ``input_points`` takes its own
+MODELS = ("rfnet", "snowflakenet")
 RANDOM_INIT_SEED = 1  # the JAX TrainConfig's default seed
 DEPTH = 3  # batches in flight under --pipeline
 
@@ -135,26 +145,59 @@ def _checkpoint_file(checkpoint: str) -> str | None:
     return found[-1][1] if found else None
 
 
-def load_state(checkpoint: str, dtype: torch.dtype | None = None) -> RFNet:
+def _snowflake_for(state_dict: dict, sizes: dict | None) -> SnowflakeNet:
+    """A SnowflakeNet whose global feature, seeds and up factors match
+    ``state_dict``, and whose other sizes are ``sizes`` (as published where
+    not given)."""
+    dim_feat, _, num_pc = state_dict["decoder.decoder_coarse.ps.weight"].shape
+    ups, i = [], 1
+    while f"decoder.uppers.{i}.ps.weight" in state_dict:
+        ups.append(state_dict[f"decoder.uppers.{i}.ps.weight"].shape[2])
+        i += 1
+    return SnowflakeNet(dim_feat=dim_feat, num_pc=num_pc, up_factors=tuple(ups), **(sizes or {}))
+
+
+def load_state(checkpoint: str | None, dtype: torch.dtype | None = None,
+               model: str | None = None, sizes: dict | None = None) -> torch.nn.Module:
     """The model with weights from ``checkpoint`` (a directory or a file, as
     the module docstring lists); its feature MLPs compute in ``dtype`` (None
-    = float32).
+    = float32; SnowflakeNet only float32). ``model`` ("rfnet" or
+    "snowflakenet") names the network; None: the checkpoint's keys tell, and
+    RFNet where there are none. ``sizes``: SnowflakeNet's sizes that its
+    weights do not hold (``num_p0``, ``radius``, ``sa_points``,
+    ``input_points``), as published where None.
 
-    Where ``checkpoint`` holds no weights, warns and returns the full-size
-    model's random init, drawn from a generator seeded ``RANDOM_INIT_SEED``."""
-    path = _checkpoint_file(checkpoint)
+    Where ``checkpoint`` is None or holds no weights, warns and returns the
+    full-size model's random init, drawn from a generator seeded
+    ``RANDOM_INIT_SEED``."""
+    if model not in (None, *MODELS):
+        raise SystemExit(f"--model {model}: one of {', '.join(MODELS)}")
+    if model == "snowflakenet" and dtype not in (None, torch.float32):
+        raise SystemExit("SnowflakeNet is served in float32 only (no --bf16)")
+    path = None if checkpoint is None else _checkpoint_file(checkpoint)
     if path is None:
         print(f"WARNING: no checkpoint under {checkpoint}; evaluating random init")
-        return RFNet(generator=torch.Generator().manual_seed(RANDOM_INIT_SEED), dtype=dtype)
+        g = torch.Generator().manual_seed(RANDOM_INIT_SEED)
+        if model == "snowflakenet":
+            return SnowflakeNet(generator=g, **(sizes or {}))
+        return RFNet(generator=g, dtype=dtype)
     if path.endswith(".npz"):
+        if model == "snowflakenet":
+            raise SystemExit(f"{path}: an .npz holds RFNet's flax weights, not SnowflakeNet's")
         return _load_npz(path, dtype)
     state_dict = torch.load(path, map_location="cpu", weights_only=True)
     if CHECKPOINT_NAME.fullmatch(os.path.basename(path)):
         print(f"checkpoint {path}: step {state_dict['step']}")
         state_dict = state_dict["model"]
-    model = _model_for(state_dict, dtype)
-    model.load_state_dict(state_dict, strict=True)
-    return model
+    snowflake = "decoder.decoder_coarse.ps.weight" in state_dict
+    if model is not None and snowflake != (model == "snowflakenet"):
+        raise SystemExit(f"{path} holds {'SnowflakeNet' if snowflake else 'RFNet'} weights, "
+                         f"not --model {model}'s")
+    if snowflake and dtype not in (None, torch.float32):
+        raise SystemExit("SnowflakeNet is served in float32 only (no --bf16)")
+    net = _snowflake_for(state_dict, sizes) if snowflake else _model_for(state_dict, dtype)
+    net.load_state_dict(state_dict, strict=True)
+    return net
 
 
 def resolve_device(name: str | torch.device) -> torch.device:
@@ -166,7 +209,7 @@ def resolve_device(name: str | torch.device) -> torch.device:
     return device
 
 
-def make_complete_fn(model: RFNet, mesh: Mesh | None = None):
+def make_complete_fn(model: torch.nn.Module, mesh: Mesh | None = None):
     """(complete, metrics) pair on the model's device. With a ``mesh`` both
     take this rank's rows of a batch, and ``metrics`` returns the per-cloud
     (cd, fidelity) of the whole batch on every rank: each rank writes its
@@ -211,7 +254,7 @@ def _load_chunks(model_list, bsz, args, out_q, stop):
             for model_id in chunk:
                 partial = read_pcd(os.path.join(args.data_dir, "partial", f"{model_id}.pcd"))
                 complete_gt = read_pcd(os.path.join(args.data_dir, "complete", f"{model_id}.pcd"))
-                partials.append(resample_pcd(partial, INPUT_POINTS).astype(np.float32))
+                partials.append(resample_pcd(partial, args.input_points).astype(np.float32))
                 gts.append(resample_pcd(complete_gt, args.num_gt_points).astype(np.float32))
             # pad the final group so every batch has the same shape
             while len(partials) < bsz:
@@ -319,7 +362,8 @@ def _serve(args, device: torch.device, mesh: Mesh | None):
     lead = mesh is None or mesh.is_lead
     say = print if lead else (lambda *a, **k: None)
     dtype = torch.bfloat16 if args.bf16 else None
-    model = load_state(args.checkpoint, dtype).to(device).eval()
+    model = load_state(args.checkpoint, dtype, args.model).to(device).eval()
+    args.input_points = getattr(model, "input_points", INPUT_POINTS)
     say("trainable parameters:", count_params(model))
     complete, metrics = make_complete_fn(model, mesh)
     can_plot = importlib.util.find_spec("matplotlib") is not None
@@ -457,6 +501,11 @@ def main(argv=None):
     parser.add_argument("--list_path", default="../../dense_data/test.list")
     parser.add_argument("--data_dir", default="../../dense_data/test")
     parser.add_argument("--checkpoint", default="./bestrecord")
+    parser.add_argument(
+        "--model", choices=MODELS, default=None,
+        help="the network: rfnet, or snowflakenet at its published PCN widths (2048 points "
+        "in, 16384 out); default: the checkpoint's, RFNet where there is none",
+    )
     parser.add_argument("--results_dir", default="results/recon")
     parser.add_argument("--num_gt_points", type=int, default=16384)
     parser.add_argument("--plot_freq", type=int, default=100)

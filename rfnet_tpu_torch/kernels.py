@@ -86,6 +86,9 @@ _SIGNATURES = {
     # K9's own for v1-v3), fma, eq_argmin, dist_out, idx_out, stream (K9,
     # the variant study's scan)
     "nn_variant": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P),
+    # query, target, b, n, m, k, dist_out, idx_out, stream (K10, the k
+    # nearest neighbours of SnowflakeNet's grouping)
+    "knn": (_P, _P, _I, _I, _I, _I, _P, _P, _P),
 }
 
 # launches of each kernel since the last reset_launch_counts()

@@ -26,9 +26,14 @@ Spans of a serving batch (``eval.dispatch`` and the model): ``eval.dispatch``
 ``rfnet.forward``, ``eval.copy_in`` (the ground truth) and
 ``eval.metrics``; inside ``rfnet.forward``, for each recurrent step 1-3 (the
 ``step`` arg), ``rfnet.encode``, ``rfnet.decode``, ``rfnet.merge`` and
-``rfnet.refine``. Counters: ``k3.pairs_loaded`` (K3's blocks: the targets of
-every slab a block loaded, times its live queries), ``k3.pairs_dense``
-(b·n·m of the same launches), and for every dense layer call
+``rfnet.refine``. SnowflakeNet's forward (``models/snowflakenet.py``) in
+place of ``rfnet.forward``: ``snow.forward`` around ``snow.extract``,
+``snow.seed`` and ``snow.spd`` (the ``step`` arg, 0-2), with ``snow.attn``
+(the ``block`` arg, 0-4) around each attention block. Counters:
+``k3.pairs_loaded`` (K3's blocks: the targets of every slab a block loaded,
+times its live queries), ``k3.pairs_dense`` (b·n·m of the same launches),
+``knn.pairs`` (b·n·m of every k-NN call, ``ops/knn.py``: K10 on the card)
+and ``knn.launches`` (the calls), and for every dense layer call
 ``dense.macs_per_point`` (the multiply-adds it did at every point) and
 ``dense.macs_per_cloud_saved`` (those over per-cloud columns that it did
 once a cloud instead, ``nn.py``).

@@ -942,3 +942,63 @@ def test_nn_dyn_registers_unchanged_by_the_counter(cuda):
                       log, re.S)
     assert entry, "build.log reports no registers for nn_dyn_kernel"
     assert int(entry.group(1)) == NN_DYN_REGISTERS
+
+
+# (queries, targets) of every k-NN SnowflakeNet runs at its published PCN
+# widths (benchmark/flops_snowflake.py:knn_calls): the set abstractions'
+# centres among their points, and the five transformers' points among
+# themselves
+SNOWFLAKE_KNN = [(512, 2048), (512, 512), (128, 512), (128, 128), (2048, 2048)]
+
+
+@pytest.mark.parametrize("n,m", SNOWFLAKE_KNN + [(1, 16), (130, 17), (1000, 3000)])
+def test_knn_kernel_equals_plain(cuda, n, m):
+    from rfnet_tpu_torch.ops import knn
+
+    b = 32 if (n, m) in SNOWFLAKE_KNN else 3
+    q, t = _clouds(20, (b, n, 3), (b, m, 3))
+    before = kernels.launches["knn"]
+    kd, ki = knn.knn(16, t.to(cuda), q.to(cuda))
+    assert kernels.launches["knn"] == before + 1
+    pd, pi = knn._knn_plain(16, t.to(cuda), q.to(cuda))  # the plain version, on the card
+    torch.testing.assert_close(kd, pd, rtol=0, atol=0)
+    torch.testing.assert_close(ki, pi, rtol=0, atol=0)
+    if b == 3:  # and the CPU's, at the small shapes
+        cd, ci = knn.knn(16, t, q)
+        torch.testing.assert_close(kd.cpu(), cd, rtol=0, atol=0)
+        torch.testing.assert_close(ki.cpu(), ci, rtol=0, atol=0)
+
+
+def test_knn_kernel_refuses_another_k_and_counts_its_launches(cuda):
+    """On the card the op runs K10, built for k = 16, or refuses; the
+    counters count K10's launches and pairs under a profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from rfnet_tpu_torch import tracing
+    from rfnet_tpu_torch.ops import knn
+
+    q, t = _clouds(22, (2, 64, 3), (2, 300, 3))
+    with pytest.raises(ValueError, match="k = 16"):
+        knn.knn(8, t.to(cuda), q.to(cuda))
+    tracing.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        knn.knn(16, t.to(cuda), q.to(cuda))
+    counts = tracing.counters()
+    tracing.reset()
+    assert counts["knn.launches"] == 1 and counts["knn.pairs"] == 2 * 64 * 300
+
+
+def test_knn_kernel_ties_and_self(cuda):
+    """On a 1/8 grid many distances tie exactly: the lower index comes first;
+    a query that is a target has itself first, at distance 0."""
+    from rfnet_tpu_torch.ops import knn
+
+    rng = np.random.RandomState(21)
+    pts = torch.from_numpy(rng.randint(0, 4, size=(4, 2048, 3)).astype(np.float32) / 8)
+    kd, ki = knn.knn(16, pts.to(cuda), pts.to(cuda))
+    pd, pi = knn._knn_plain(16, pts, pts)
+    torch.testing.assert_close(kd.cpu(), pd, rtol=0, atol=0)
+    torch.testing.assert_close(ki.cpu(), pi, rtol=0, atol=0)
+    assert (kd[..., 0] == 0).all()
+    same = kd[..., 1:] == kd[..., :-1]
+    assert same.any() and (ki[..., 1:][same] > ki[..., :-1][same]).all()
