@@ -156,10 +156,15 @@
    (``SNOWFLAKE_KNN``), on uniform clouds and on a 1/8 grid (exact ties),
    timed beside the plain version and ``torch.cdist`` + ``topk``
    (``knn_run``, callable alone);
-16. prints whether the native .pcd codec was built and how often it read,
+16. K11 (``csrc/attn.cu``, SnowflakeNet's k-NN vector attention after the
+   k-NN) against its plain version at the five blocks of a forward at
+   batch 32 on the benchmark's weights, within ``ATTN_ATOL``, and the plain
+   version with TF32 operands outside it, timed beside the plain version
+   (``attn_run``, callable alone);
+17. prints whether the native .pcd codec was built and how often it read,
    the per-kernel JSON line (with the converged b32 step's times; each
    kernel's launches on every path, the preload, online, pipeline, bf16,
-   mesh, export, protocol, bench, verify, study and knn ones among them; "mesh"
+   mesh, export, protocol, bench, verify, study, knn and attn ones among them; "mesh"
    is rank 0's of the W=2 host-path run, "export" the b4 artifact's 4
    batches), then ``{"ok": true, "device": ...}``.
 
@@ -724,13 +729,17 @@ def check_train_kernels(dev, rows: dict) -> None:
 
 
 # launches of each kernel in one train step and in one eval batch of 4
+# (K10 and K11 run in SnowflakeNet's forward alone)
 STEP_LAUNCHES = {"fps": 3, "nn_coords": 3, "nn_dyn": 4, "nn_dense": 2, "nn_grad": 2,
-                 "emd_cost": 0, "nn_pruned": 0, "nn_tile": 0, "nn_variant": 0}
+                 "emd_cost": 0, "nn_pruned": 0, "nn_tile": 0, "nn_variant": 0, "knn": 0,
+                 "attn": 0}
 EVAL_LAUNCHES = {"fps": 1, "nn_coords": 3, "nn_dyn": 2, "nn_dense": 0, "nn_grad": 0,
-                 "emd_cost": 1, "nn_pruned": 0, "nn_tile": 0, "nn_variant": 0}
+                 "emd_cost": 1, "nn_pruned": 0, "nn_tile": 0, "nn_variant": 0, "knn": 0,
+                 "attn": 0}
 # launches in one serving batch of 4: forward, CD both ways, fidelity
 SERVE_LAUNCHES = {"fps": 1, "nn_coords": 3, "nn_dyn": 3, "nn_dense": 0, "nn_grad": 0,
-                  "emd_cost": 0, "nn_pruned": 0, "nn_tile": 0, "nn_variant": 0}
+                  "emd_cost": 0, "nn_pruned": 0, "nn_tile": 0, "nn_variant": 0, "knn": 0,
+                  "attn": 0}
 
 
 def under_tile_backend(counts: dict) -> dict:
@@ -2521,7 +2530,7 @@ FORWARD_LAUNCHES = {"fps": 1, "nn_coords": 3}
 VERIFY_LAUNCHES = {k: v + 3 * FORWARD_LAUNCHES.get(k, 0) + 3 * STEP_LAUNCHES[k]
                    for k, v in {"fps": 1, "nn_coords": 1, "nn_dyn": 7, "nn_dense": 12,
                                 "nn_grad": 2, "emd_cost": 2, "nn_pruned": 3,
-                                "nn_tile": 3, "nn_variant": 0}.items()}
+                                "nn_tile": 3, "nn_variant": 0, "knn": 0, "attn": 0}.items()}
 VERIFY_CHECKS = 15
 # bench.py's _component_breakdown keys, and those bench_torch.py adds; the
 # sweep's keys besides (fwd_[bf16_]b<N>_ms, _clouds_per_sec, _peak_gb)
@@ -2814,6 +2823,130 @@ def knn_run(dev) -> tuple[dict, dict]:
     return row, dict(kernels.launches)
 
 
+# K11's tolerance against its plain version on the card, in the units of
+# the blocks' outputs (|out| <= 0.61 on the benchmark's weights): the most
+# that float32 reordering moved them in attn_run's readings is 1.79e-7, the
+# least that the plain version with TF32 operands moved them 6.82e-5
+# (PERF.md §6), so 2e-6 is 11x above the one and 34x below the other
+ATTN_ATOL = 2e-6
+
+
+def snowflake_attn_inputs(dev, seed: int = 22, batch: int = 32) -> tuple[list[tuple], dict]:
+    """The arguments of the five ``vector_attention`` calls of a SnowflakeNet
+    forward at ``batch`` on the benchmark's weights (``weights_seed`` 1 in
+    the published shapes, BatchNorm far from its init) and partials of the
+    benchmark's traffic generator: (pos, idx, query, key, value, mlps,
+    packed) each, at n = 512, 128, 512, 512, 2 048; and the forward's
+    kernel launches, which must hold 5 of K11 and 7 of K10."""
+    import torch
+
+    from rfnet_tpu_torch import kernels
+    from rfnet_tpu_torch.models import snowflakenet as snow
+
+    model, partial = snowflake_model(dev), snowflake_partials(dev, batch, seed)
+    calls, real = [], snow.vector_attention
+
+    def record(*args):
+        calls.append(args)
+        return real(*args)
+
+    snow.vector_attention = record
+    try:
+        with torch.inference_mode():
+            kernels.reset_launch_counts()
+            model(partial)
+            launches = dict(kernels.launches)
+    finally:
+        snow.vector_attention = real
+    check(launches["attn"] == 5 and launches["knn"] == 7,
+          f"a SnowflakeNet forward launched K11 {launches['attn']} times (5 expected) and K10 "
+          f"{launches['knn']} times (7 expected)")
+    return calls, launches
+
+
+def snowflake_model(dev):
+    """SnowflakeNet at the published widths on the benchmark's weights
+    (``weights_seed`` 1 in the published shapes), on ``dev``, for serving."""
+    from benchmark.reference import snowflakenet as ref
+    from rfnet_tpu_torch.models.snowflakenet import SnowflakeNet
+
+    model = SnowflakeNet()
+    model.load_state_dict(ref.draw_weights(ref.published_shapes(), 1))
+    return model.to(dev).eval()
+
+
+def snowflake_partials(dev, batch: int = 32, seed: int = 22):
+    """``batch`` partials of 2 048 points from the benchmark's traffic
+    generator, on ``dev``."""
+    import numpy as np
+    import torch
+
+    from benchmark.traffic import synthetic
+
+    partial = np.stack([p for p, _ in synthetic.pairs(batch, 2048, 16384, seed)])
+    return torch.from_numpy(partial).to(dev)
+
+
+def attn_run(dev) -> tuple[dict, dict]:
+    """Phase 16: K11 (SnowflakeNet's k-NN vector attention, ``csrc/attn.cu``)
+    against its plain version at the five blocks of a forward at batch 32 on
+    the benchmark's weights (:func:`snowflake_attn_inputs`), within
+    :data:`ATTN_ATOL`, and the plain version with TF32 operands (the
+    control) outside it; times the wrapper, the card's kernel alone and the
+    plain version, which is the eager attention the model ran before K11
+    (so it is also the row's library time: no one PyTorch call computes the
+    block). Returns (K11's row, the launches of the model's forward, not of
+    the phase's timing loops)."""
+    import torch
+
+    calls, launches = snowflake_attn_inputs(dev)
+    shapes, worst, control = [], 0.0, []
+    with torch.inference_mode():  # as the model serves: no autograd graph
+        for block, args in enumerate(calls):
+            shapes.append(_attn_block(block, *args))
+            worst = max(worst, shapes[-1]["max_abs_err"])
+            control.append(shapes[-1]["tf32_err"])
+    check(worst <= ATTN_ATOL, f"K11: {worst:.3e} from the plain version, over {ATTN_ATOL}")
+    check(min(control) > ATTN_ATOL, f"K11: the TF32 control ({min(control):.3e}) is within "
+          f"{ATTN_ATOL}")
+    row = dict(shapes[-1], max_abs_err=worst, shapes=shapes)  # the largest, stage 2's, last
+    return row, launches
+
+
+def _attn_block(block: int, pos, idx, q, k, v, mlps, packed) -> dict:
+    """One block of :func:`attn_run`: its readings and times."""
+    import torch
+
+    from rfnet_tpu_torch.ops import vector_attention as va
+
+    b, n = q.shape[:2]
+    got = va.vector_attention(pos, idx, q, k, v, mlps, packed)
+    want = va._attention_plain(pos, idx, q, k, v, mlps)
+    tf32_was = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = va._attention_plain(pos, idx, q, k, v, mlps)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32_was
+    err = float((got - want).abs().max())
+    tf32_err = float((tf32 - want).abs().max())
+    scale = float(want.abs().max())
+    print(f"K11 attn block {block} ({b},{n}): |K11 - plain| {err:.3e}, |plain TF32 - plain| "
+          f"{tf32_err:.3e}, |plain| <= {scale:.3f}")
+    ms = cuda_ms(lambda: va.vector_attention(pos, idx, q, k, v, mlps, packed), 20)
+    dev_ms = device_ms(lambda: va.vector_attention(pos, idx, q, k, v, mlps, packed), 10,
+                       "attn_gemm_kernel")
+    plain_ms = cuda_ms(lambda: va._attention_plain(pos, idx, q, k, v, mlps), 5)
+    pairs = b * n * va.ATTN_KERNEL_K
+    b_ms, b_by = bound(2.0 * pairs * (3 * 64 + 64 * 64 + 64 * 256 + 256 * 64),
+                       b * n * (12 + 4 * 16 + 4 * 64 * 4) + 4 * va.PACKED_FLOATS)
+    shape = f"({b},{n},16) pairs, block {block}"
+    print(f"K11 attn {shape}: wrapper {ms:.4f} ms, card {fmt_ms(dev_ms)} ms, plain (the "
+          f"eager attention) {plain_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
+    return dict(shape=shape, ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, max_abs_err=err, tf32_err=tf32_err)
+
+
 def main() -> int:
     import torch
 
@@ -2877,6 +3010,9 @@ def main() -> int:
         t_knn = time.time()
         rows["knn"], knn_counts = knn_run(dev)
         print(f"phase 15 (K10): {time.time() - t_knn:.1f} s")
+        t_attn = time.time()
+        rows["attn"], attn_counts = attn_run(dev)
+        print(f"phase 16 (K11): {time.time() - t_attn:.1f} s")
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 
@@ -2889,19 +3025,21 @@ def main() -> int:
            "nn_pruned": ("nn_pruned.cu", "rfnet_tpu/ops/pallas/chamfer_pruned.py:128", "ops"),
            "nn_tile": ("nn_tile.cu", "rfnet_tpu/ops/pallas/chamfer_tile.py:214", "tile"),
            "nn_variant": ("nn_variant.cu", "tools/bench_chamfer_variants.py:42", "study"),
-           "knn": ("knn.cu", "none: SnowflakeNet's k-NN, new in the port", "knn")}
+           "knn": ("knn.cu", "none: SnowflakeNet's k-NN, new in the port", "knn"),
+           "attn": ("attn.cu", "none: SnowflakeNet's vector attention, new in the port",
+                    "attn")}
     by_path = {"serve": serve_counts, "train": train_counts, "lmdb": lmdb_counts,
                "ops": ops_counts, "tile": tile_counts, "preload": preload_counts,
                "online": online_counts, "pipeline": pipeline_counts, "bf16": bf16_counts,
                "mesh": mesh_counts["mesh"], "export": export_counts, "protocol": protocol_counts,
                "bench": bench_counts, "verify": verify_counts, "study": study_counts,
-               "knn": knn_counts}
+               "knn": knn_counts, "attn": attn_counts}
     for name, (_, _, path) in src.items():
         check(by_path[path][name] > 0, f"{name} was not launched on the {path} path")
     for name in ("fps", "nn_coords"):
         check(export_counts[name] > 0, f"{name} was not launched on the export path")
-    for name in src:  # K9 runs on the study path alone, K10 on SnowflakeNet's
-        check(name in ("nn_variant", "knn") or verify_counts[name] > 0,
+    for name in src:  # K9 runs on the study path alone, K10 and K11 on SnowflakeNet's
+        check(name in ("nn_variant", "knn", "attn") or verify_counts[name] > 0,
               f"{name} was not launched on the verify path")
     for name in ("fps", "nn_coords", "nn_dyn", "nn_dense", "nn_grad", "emd_cost"):
         check(protocol_counts[name] > 0, f"{name} was not launched on the protocol path")

@@ -89,6 +89,9 @@ _SIGNATURES = {
     # query, target, b, n, m, k, dist_out, idx_out, stream (K10, the k
     # nearest neighbours of SnowflakeNet's grouping)
     "knn": (_P, _P, _I, _I, _I, _I, _P, _P, _P),
+    # pos, idx (int32), query, key, value, the packed weights, b, n, CTAs at
+    # most, out, stream (K11, SnowflakeNet's vector attention after its k-NN)
+    "attn": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P),
 }
 
 # launches of each kernel since the last reset_launch_counts()

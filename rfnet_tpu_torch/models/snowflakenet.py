@@ -30,8 +30,9 @@ input joins the 512-wide global feature (or a max-pooled one) to every
 point, it takes the blocks as a list and multiplies the per-cloud block
 once a cloud (``nn._dense``). BatchNorm (only inside the transformers'
 position and attention MLPs) serves with its running statistics, folded
-into the convolution before it. FPS runs through kernel K1 and the k-NN
-through K10 (``ops/knn.py``) on the card.
+into the convolution before it. FPS runs through kernel K1, the k-NN
+through K10 (``ops/knn.py``) and the attention after it through K11
+(``ops/vector_attention.py``) on the card.
 
 Module and parameter names follow the published modules (``feat_extractor.
 sa_module_1.mlp_conv.0.conv.weight``, ``decoder.uppers.2.ps.weight``, …);
@@ -62,6 +63,7 @@ from rfnet_tpu_torch.nn import Dense
 from rfnet_tpu_torch.ops.fps import farthest_point_sample, gather_point
 from rfnet_tpu_torch.ops.grouping import group_point
 from rfnet_tpu_torch.ops.knn import knn
+from rfnet_tpu_torch.ops.vector_attention import AttnMLPs, pack, vector_attention
 from rfnet_tpu_torch.tracing import span
 
 BN_EPS = 1e-5  # nn.BatchNorm's default, as published
@@ -163,32 +165,27 @@ class MLPRes(nn.Module):
 
 
 class _BNMLP(nn.Module):
-    """``Sequential(Conv2d, BatchNorm2d, ReLU, Conv2d)`` of the transformers:
-    the BatchNorm (running statistics) folded into the first convolution,
-    refolded only when a parameter or statistic changes."""
+    """``Sequential(Conv2d, BatchNorm2d, ReLU, Conv2d)`` of the transformers,
+    as parameters: :meth:`_fold` gives the first convolution with the
+    BatchNorm (running statistics) folded in; ``ops/vector_attention.py``
+    applies the layers and ``_Attention._mlps`` keeps them folded."""
 
     def __init__(self, in_ch: int, hidden: int, out_ch: int, g: torch.Generator):
         super().__init__()
         self.add_module("0", _conv(in_ch, hidden, g))
         self.add_module("1", nn.BatchNorm1d(hidden, eps=BN_EPS))
         self.add_module("3", _conv(hidden, out_ch, g))
-        self._folded: tuple = ((), None)
+
+    def _tensors(self) -> tuple[torch.Tensor, ...]:
+        """Every parameter and statistic the folded layers are made from."""
+        conv, bn, out = getattr(self, "0"), getattr(self, "1"), getattr(self, "3")
+        return (conv.weight, conv.bias, bn.weight, bn.bias, bn.running_mean, bn.running_var,
+                out.weight, out.bias)
 
     def _fold(self) -> tuple[torch.Tensor, torch.Tensor]:
         conv, bn = getattr(self, "0"), getattr(self, "1")
-        ts = (conv.weight, conv.bias, bn.weight, bn.bias, bn.running_mean, bn.running_var)
-        key = tuple((t.data_ptr(), t._version) for t in ts)
-        if self._folded[0] != key:
-            with torch.inference_mode(False), torch.no_grad():
-                s = bn.weight / torch.sqrt(bn.running_var + bn.eps)
-                w = conv.weight * s[:, None]
-                c = (conv.bias - bn.running_mean) * s + bn.bias
-            self._folded = (key, (w, c))
-        return self._folded[1]
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        w, c = self._fold()
-        return getattr(self, "3")(F.relu(F.linear(x, w, c), inplace=True))
+        s = bn.weight / torch.sqrt(bn.running_var + bn.eps)
+        return conv.weight * s[:, None], (conv.bias - bn.running_mean) * s + bn.bias
 
 
 class _Attention(nn.Module):
@@ -206,18 +203,31 @@ class _Attention(nn.Module):
         self.conv_value = _conv(key_in, dim, g)
         self.pos_mlp = _BNMLP(3, pos_hidden, dim, g)
         self.attn_mlp = _BNMLP(dim, dim * attn_mult, dim, g)
+        self._weights: tuple = ((), None)
 
     def attend(self, pos, key, query, value) -> torch.Tensor:
-        """(b, n, dim) aggregated features of the (b, n, 3) points ``pos``."""
+        """(b, n, dim) aggregated features of the (b, n, 3) points ``pos``:
+        the projections once a point, then the pairs in
+        :func:`~rfnet_tpu_torch.ops.vector_attention.vector_attention` (K11 on
+        the card)."""
         _, idx = knn(self.k, pos, pos)  # (b, n, k)
         key = self.conv_key(key)
         query = self.conv_query(query)
         value = self.conv_value(value)
-        qk_rel = query[:, :, None, :] - group_point(key, idx)  # (b, n, k, dim)
-        pos_rel = pos[:, :, None, :] - group_point(pos, idx)  # (b, n, k, 3)
-        pe = self.pos_mlp(pos_rel)
-        attn = torch.softmax(self.attn_mlp(qk_rel.add_(pe)), dim=2)
-        return (attn * pe.add_(value[:, :, None, :])).sum(2)
+        return vector_attention(pos, idx, query, key, value, *self._mlps())
+
+    def _mlps(self) -> tuple[AttnMLPs, torch.Tensor]:
+        """The two MLPs with their BatchNorm folded and K11's packed weights,
+        folded and packed again only when a parameter or statistic changes."""
+        key = tuple((t.data_ptr(), t._version)
+                    for t in self.pos_mlp._tensors() + self.attn_mlp._tensors())
+        if self._weights[0] != key:
+            pos3, attn3 = getattr(self.pos_mlp, "3"), getattr(self.attn_mlp, "3")
+            with torch.inference_mode(False), torch.no_grad():
+                mlps = AttnMLPs(*self.pos_mlp._fold(), pos3.weight, pos3.bias,
+                                *self.attn_mlp._fold(), attn3.weight, attn3.bias)
+                self._weights = (key, (mlps, pack(mlps)))
+        return self._weights[1]
 
 
 class Transformer(_Attention):

@@ -12,6 +12,8 @@ chamfer.chamfer_sample_means, nn_sample_mean_one
                                                backward K5 ``csrc/nn_grad.cu``
 fps.farthest_point_sample, sampling            K1 ``csrc/fps.cu``
 emd.approx_match_cost                          K6 ``csrc/emd_cost.cu``
+knn.knn                                        K10 ``csrc/knn.cu``
+vector_attention.vector_attention              K11 ``csrc/attn.cu``
 emd.approx_match, match_cost, approx_match_cost_diff
 fps.gather_point, grouping.*, interpolate.*, auction.auction_match
                                                plain PyTorch on both devices

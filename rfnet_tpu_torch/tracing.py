@@ -33,7 +33,9 @@ place of ``rfnet.forward``: ``snow.forward`` around ``snow.extract``,
 ``k3.pairs_loaded`` (K3's blocks: the targets of every slab a block loaded,
 times its live queries), ``k3.pairs_dense`` (b·n·m of the same launches),
 ``knn.pairs`` (b·n·m of every k-NN call, ``ops/knn.py``: K10 on the card)
-and ``knn.launches`` (the calls), and for every dense layer call
+and ``knn.launches`` (the calls), ``attn.pairs`` (b·n·k of every K11 launch,
+``ops/vector_attention.py``) and ``attn.launches``, and for every dense
+layer call
 ``dense.macs_per_point`` (the multiply-adds it did at every point) and
 ``dense.macs_per_cloud_saved`` (those over per-cloud columns that it did
 once a cloud instead, ``nn.py``).

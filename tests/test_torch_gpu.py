@@ -1002,3 +1002,98 @@ def test_knn_kernel_ties_and_self(cuda):
     assert (kd[..., 0] == 0).all()
     same = kd[..., 1:] == kd[..., :-1]
     assert same.any() and (ki[..., 1:][same] > ki[..., :-1][same]).all()
+
+
+@pytest.fixture(scope="module")
+def attn_inputs():
+    """The five attention blocks' inputs of a SnowflakeNet forward at batch
+    32 on the benchmark's weights (``chip_smoke.snowflake_attn_inputs``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import chip_smoke
+
+    return chip_smoke.snowflake_attn_inputs(torch.device("cuda", 0))[0]
+
+
+@pytest.mark.parametrize("block", range(5))
+def test_attn_kernel_matches_plain(attn_inputs, block):
+    """K11 at each block of the forward (b = 32; n = 512, 128, 512, 512,
+    2 048) within ``chip_smoke.ATTN_ATOL`` of its plain version on the card,
+    and the plain version with TF32 operands, the control, outside it. The
+    tolerance comes from readings: float32 reordering moved the outputs
+    1.79e-7 at most, TF32 operands 6.82e-5 at least (PERF.md §6)."""
+    from chip_smoke import ATTN_ATOL
+    from rfnet_tpu_torch.ops import vector_attention as va
+
+    pos, idx, q, k, v, mlps, packed = attn_inputs[block]
+    assert q.shape[:2] == (32, (512, 128, 512, 512, 2048)[block])
+    before = kernels.launches["attn"]
+    tf32_was = torch.backends.cuda.matmul.allow_tf32
+    with torch.inference_mode():
+        got = va.vector_attention(pos, idx, q, k, v, mlps, packed)
+        want = va._attention_plain(pos, idx, q, k, v, mlps)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            tf32 = va._attention_plain(pos, idx, q, k, v, mlps)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = tf32_was
+    assert kernels.launches["attn"] == before + 1
+    assert float((got - want).abs().max()) <= ATTN_ATOL
+    assert float((tf32 - want).abs().max()) > ATTN_ATOL
+
+
+def test_attn_kernel_counts_a_forward(cuda):
+    """Every attention block of a SnowflakeNet forward goes through K11:
+    ``attn.launches`` 5 and ``attn.pairs`` 59 392 a cloud under a profiler,
+    five ``attn_gemm_kernel`` launches and no softmax kernel left."""
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke
+    from rfnet_tpu_torch import tracing
+
+    model, partial = chip_smoke.snowflake_model(cuda), chip_smoke.snowflake_partials(cuda)
+    with torch.inference_mode():
+        model(partial)  # folds and packs the weights
+        before = kernels.launches["attn"]
+        tracing.reset()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            model(partial)
+            torch.cuda.synchronize()
+    counts = tracing.counters()
+    tracing.reset()
+    assert kernels.launches["attn"] == before + 5
+    assert counts["attn.launches"] == 5 and counts["attn.pairs"] == 32 * 59_392
+    device = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert sum(e.count for e in device if "attn_gemm_kernel" in e.key) == 5
+    assert not any("softmax" in e.key.lower() for e in device)
+
+
+def test_attn_kernel_refuses_other_widths(cuda):
+    """On the card the op runs K11, built for the published widths, or
+    refuses."""
+    from rfnet_tpu_torch.ops import knn, vector_attention as va
+
+    g = torch.Generator().manual_seed(23)
+    pos = torch.rand(2, 40, 3, generator=g).to(cuda)
+    q = torch.randn(2, 40, 64, generator=g).to(cuda)
+    shapes = ((64, 3), (64,), (64, 64), (64,), (256, 64), (256,), (64, 256), (64,))
+    mlps = va.AttnMLPs(*(torch.randn(*s, generator=g).to(cuda) / 8 for s in shapes))
+    idx = knn.knn(16, pos, pos)[1]
+    packed = va.pack(mlps)
+    assert va.vector_attention(pos, idx, q, q, q, mlps, packed).shape == q.shape
+    with pytest.raises(ValueError, match="K11 is built for"):
+        va.vector_attention(pos, idx[..., :8].contiguous(), q, q, q, mlps, packed)
+    with pytest.raises(ValueError, match="packed"):
+        va.vector_attention(pos, idx, q, q, q, mlps)
+
+
+def test_attn_kernel_refuses_autograd(cuda):
+    """K11 has no backward: a SnowflakeNet forward on the card with autograd
+    on raises instead of cutting the graph; under ``no_grad`` it runs."""
+    import chip_smoke
+
+    model, partial = chip_smoke.snowflake_model(cuda), chip_smoke.snowflake_partials(cuda, 2)
+    with pytest.raises(ValueError, match="no backward"):
+        model(partial)
+    with torch.no_grad():
+        assert torch.isfinite(model(partial).stages[-1]).all()

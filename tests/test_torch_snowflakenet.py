@@ -5,10 +5,14 @@ The program against the benchmark's plain reference
 ``torch``) on seeded random weights at every published channel width and
 small point counts; the k-NN op (``ops/knn.py``, K10's plain version)
 against the reference's k-NN, with planted exact ties and every point's
-distance to itself 0; the eval CLI's ``--model snowflakenet`` end to end on
-two ``.pcd`` files; loading by the checkpoint's keys; and the model's spans
-and counters under a profiler. K10 itself is held to the plain version on
-the card (``tests/test_torch_gpu.py``, ``chip_smoke.py`` phase 15).
+distance to itself 0; the vector attention op (``ops/vector_attention.py``,
+K11's plain version) bit-equal to the attention the model ran before K11, at
+the published widths on the benchmark's weights, and its wrapper's refusals
+and counters; the eval CLI's ``--model snowflakenet`` end to end on two
+``.pcd`` files; loading by the checkpoint's keys; and the model's spans and
+counters under a profiler. K10 and K11 themselves are held to their plain
+versions on the card (``tests/test_torch_gpu.py``, ``chip_smoke.py`` phases
+15 and 16).
 """
 
 import os
@@ -16,6 +20,7 @@ import os
 import numpy as np
 import pytest
 import torch
+from torch.nn import functional as F
 from torch.profiler import ProfilerActivity, profile
 
 from benchmark import flops_snowflake
@@ -24,7 +29,8 @@ from rfnet_tpu_torch import eval as teval
 from rfnet_tpu_torch import tracing
 from rfnet_tpu_torch.data import pcd_io
 from rfnet_tpu_torch.models.snowflakenet import SnowflakeNet
-from rfnet_tpu_torch.ops import knn
+from rfnet_tpu_torch.ops import knn, vector_attention
+from rfnet_tpu_torch.ops.grouping import group_point
 
 # every channel width as published; 2 clouds of 256 points, set abstraction
 # centres 64 and 16, 32 seeds, P0 64, up factors [1, 2, 2]: 64 -> 64 -> 128 -> 256
@@ -208,8 +214,9 @@ def test_spans_and_counters_fire_under_a_profiler():
     assert sorted(e.kwinputs()["block"] for e in attn) == [0, 1, 2, 3, 4]
     spd = [e for e in prof.profiler.kineto_results.events() if e.name() == "snow.spd"]
     assert sorted(e.kwinputs()["step"] for e in spd) == [0, 1, 2]
-    # the CPU's plain k-NN launches nothing, so counts nothing
+    # the CPU's plain k-NN and attention launch nothing, so count nothing
     assert "knn.launches" not in counts and "knn.pairs" not in counts
+    assert not any(name.startswith("attn.") for name in counts)
 
 
 def test_knn_counts_k10_launches(monkeypatch):
@@ -233,3 +240,187 @@ def test_knn_counts_k10_launches(monkeypatch):
     tracing.reset()
     assert counts == {"knn.pairs": 2 * 2 * 64 * 300, "knn.launches": 2}
     assert torch.equal(i.long(), ref.knn(16, t, q))
+
+
+# the five attention blocks of the published model, in the forward's order
+ATTN_BLOCKS = ("feat_extractor.transformer_1", "feat_extractor.transformer_2",
+               "decoder.uppers.0.skip_transformer", "decoder.uppers.1.skip_transformer",
+               "decoder.uppers.2.skip_transformer")
+
+
+@pytest.fixture(scope="module")
+def published_model():
+    """SnowflakeNet at the published widths on the benchmark's weights
+    (``weights_seed`` 1 in the published shapes, BatchNorm far from its
+    init)."""
+    model = SnowflakeNet()
+    model.load_state_dict(ref.draw_weights(ref.published_shapes(), 1), strict=True)
+    return model.eval()
+
+
+def _eager_attend(att, pos, key, query, value):
+    """The attention as the model ran it before K11: the published pair
+    tensors, eagerly, through the model's own layers."""
+    _, idx = knn.knn(att.k, pos, pos)
+    key, query, value = att.conv_key(key), att.conv_query(query), att.conv_value(value)
+    qk_rel = query[:, :, None, :] - group_point(key, idx)
+    pos_rel = pos[:, :, None, :] - group_point(pos, idx)
+    w, c = att.pos_mlp._fold()
+    pe = getattr(att.pos_mlp, "3")(F.relu(F.linear(pos_rel, w, c), inplace=True))
+    w, c = att.attn_mlp._fold()
+    logits = getattr(att.attn_mlp, "3")(F.relu(F.linear(qk_rel.add_(pe), w, c), inplace=True))
+    attn = torch.softmax(logits, dim=2)
+    return (attn * pe.add_(value[:, :, None, :])).sum(2)
+
+
+@pytest.mark.parametrize("block", range(5))
+def test_attention_plain_is_the_eager_attention(published_model, block):
+    """K11's plain version, through the model's ``attend``, is bit-equal to
+    the attention as it stood before K11, at the published widths on 256
+    points of 2 clouds and the benchmark's weights."""
+    att = published_model.get_submodule(ATTN_BLOCKS[block])
+    g = torch.Generator().manual_seed(30 + block)
+    pos = torch.rand(2, 256, 3, generator=g) - 0.5
+    key, query, value = (torch.randn(2, 256, att.conv_key.in_features, generator=g)
+                         for _ in range(3))
+    with torch.inference_mode():
+        got = att.attend(pos, key, query, value)
+        want = _eager_attend(att, pos, key, query, value)
+    assert got.shape == (2, 256, 64) and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("changed", ["running_var", "bn bias", "second layer", "none"])
+def test_attention_weights_refold_when_a_parameter_changes(changed):
+    """``_Attention._mlps`` folds and packs once, and again after an in-place
+    change to any parameter or statistic of either MLP (here the attention
+    MLP's): the packed weights then equal :func:`pack` of a fresh fold."""
+    att = SnowflakeNet().feat_extractor.transformer_1
+    mlps, packed = att._mlps()
+    with torch.no_grad():
+        bn, out = getattr(att.attn_mlp, "1"), getattr(att.attn_mlp, "3")
+        if changed == "running_var":
+            bn.running_var.mul_(2)
+        elif changed == "bn bias":
+            bn.bias.add_(0.5)
+        elif changed == "second layer":
+            out.weight.mul_(-1)
+    again = att._mlps()
+    assert (again[1] is packed) == (changed == "none")
+    w, c = att.attn_mlp._fold()
+    fresh = mlps._replace(attn_w1=w, attn_b1=c, attn_w2=out.weight, attn_b2=out.bias)
+    assert torch.equal(again[1], vector_attention.pack(fresh))
+    assert torch.equal(again[1], packed) == (changed == "none")
+
+
+def _attn_args(b=2, n=40, k=16, dim=64, pos_hidden=64, hidden=256, seed=5):
+    g = torch.Generator().manual_seed(seed)
+    pos = torch.rand(b, n, 3, generator=g)
+    idx = knn.knn(k, pos, pos)[1]
+    q, key, v = (torch.randn(b, n, dim, generator=g) for _ in range(3))
+    shapes = ((pos_hidden, 3), (pos_hidden,), (dim, pos_hidden), (dim,), (hidden, dim),
+              (hidden,), (dim, hidden), (dim,))
+    mlps = vector_attention.AttnMLPs(*(torch.randn(*s, generator=g) / 8 for s in shapes))
+    return pos, idx, q, key, v, mlps
+
+
+def _bad(case):
+    pos, idx, q, key, v, mlps = _attn_args()
+    if case == "pos shape":
+        pos = pos[:, :, :2]
+    elif case == "idx dtype":
+        idx = idx.long()
+    elif case == "idx shape":
+        idx = idx[:, :-1]
+    elif case == "key shape":
+        key = key[:, :, :32]
+    elif case == "value dtype":
+        v = v.double()
+    elif case == "weight width":
+        mlps = mlps._replace(attn_w2=mlps.attn_w2[:, :128])
+    elif case == "weight dtype":
+        mlps = mlps._replace(pos_b1=mlps.pos_b1.double())
+    elif case == "device":
+        key = key.to("meta")
+    return pos, idx, q, key, v, mlps
+
+
+@pytest.mark.parametrize("case", ["pos shape", "idx dtype", "idx shape", "key shape",
+                                  "value dtype", "weight width", "weight dtype", "device"])
+def test_vector_attention_refuses_bad_inputs(case):
+    with pytest.raises(ValueError):
+        vector_attention.vector_attention(*_bad(case))
+
+
+@pytest.mark.parametrize("widths", [dict(k=8), dict(dim=32), dict(pos_hidden=32),
+                                    dict(hidden=128), dict()])
+def test_k11_refuses_other_widths(widths):
+    """The card's check: K11 takes the published widths only (the CPU's
+    plain version takes any, as it does here)."""
+    pos, idx, q, key, v, mlps = _attn_args(**widths)
+    assert vector_attention.vector_attention(pos, idx, q, key, v, mlps).shape == q.shape
+    packed = vector_attention.pack(mlps)
+    if widths:
+        with pytest.raises(ValueError, match="K11 is built for"):
+            vector_attention._check_kernel(idx, q, mlps, packed, (pos, q, key, v))
+    else:
+        vector_attention._check_kernel(idx, q, mlps, packed, (pos, q, key, v))
+        for bad in (packed[:-1], None):
+            with pytest.raises(ValueError, match="packed"):
+                vector_attention._check_kernel(idx, q, mlps, bad, (pos, q, key, v))
+
+
+@pytest.mark.parametrize("grad_of", ["query", "weight"])
+def test_k11_refuses_autograd(grad_of):
+    """The card's check: K11 has no backward, so a call that autograd would
+    record raises; under ``no_grad`` or ``inference_mode`` it goes."""
+    pos, idx, q, key, v, mlps = _attn_args()
+    if grad_of == "query":
+        q.requires_grad_(True)
+    else:
+        mlps.attn_w1.requires_grad_(True)
+    packed = vector_attention.pack(mlps)
+    with pytest.raises(ValueError, match="no backward"):
+        vector_attention._check_kernel(idx, q, mlps, packed, (pos, q, key, v))
+    for mode in (torch.no_grad, torch.inference_mode):
+        with mode():
+            vector_attention._check_kernel(idx, q, mlps, packed, (pos, q, key, v))
+
+
+def test_pack_lays_out_the_weights_as_k11_reads_them():
+    """csrc/attn.cu's offsets: W1p (64, 3), b1p, W2p^T, b2p, W1a^T, b1a,
+    W2a^T, b2a."""
+    mlps = _attn_args()[-1]
+    packed = vector_attention.pack(mlps)
+    assert packed.shape == (vector_attention.PACKED_FLOATS,) and packed.dtype == torch.float32
+    off = 0
+    for t, transposed in zip(mlps, (False, False, True, False, True, False, True, False)):
+        want = (t.t() if transposed else t).reshape(-1)
+        assert torch.equal(packed[off:off + want.numel()], want)
+        off += want.numel()
+    assert off == vector_attention.PACKED_FLOATS
+
+
+def test_vector_attention_counts_k11_launches(monkeypatch):
+    """``attn.launches`` and ``attn.pairs`` count each K11 launch (here a
+    stand-in that writes the plain version's answer) under a profiler, and
+    nothing without one."""
+    pos, idx, q, key, v, mlps = _attn_args(b=3, n=40)
+    packed = vector_attention.pack(mlps)
+
+    def launch(name, device, pos_, idx_, q_, k_, v_, packed_, b, n, ctas, out):
+        assert name == "attn" and (b, n) == (3, 40) and ctas > 0
+        assert packed_.data_ptr() == packed.data_ptr()
+        out[:] = vector_attention._attention_plain(pos_, idx_, q_, k_, v_, mlps)
+
+    monkeypatch.setattr(vector_attention.kernels, "launch", launch)
+    monkeypatch.setattr(vector_attention, "_sm_count", lambda device: 132)
+    tracing.reset()
+    vector_attention._attention_launch(pos, idx, q, key, v, packed)
+    assert tracing.counters() == {}
+    with profile(activities=[ProfilerActivity.CPU]):
+        got = vector_attention._attention_launch(pos, idx, q, key, v, packed)
+        vector_attention._attention_launch(pos, idx, q, key, v, packed)
+    counts = tracing.counters()
+    tracing.reset()
+    assert counts == {"attn.pairs": 2 * 3 * 40 * 16, "attn.launches": 2}
+    assert torch.equal(got, vector_attention.vector_attention(pos, idx, q, key, v, mlps))
