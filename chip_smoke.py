@@ -1745,13 +1745,13 @@ def diagnostics(dev) -> None:
     kernels."""
     import torch
 
-    from rfnet_tpu_torch import train
+    from rfnet_tpu_torch import checkpoints, train
 
     workdir = os.path.join(WORK, "nan", "model")
     state = train.create_state(train.TrainConfig(batch_size=2), dev)
     with torch.no_grad():
         state.model.cell.state_mlp.l0.weight[0, 0] = float("nan")
-    train.save_checkpoint(state, workdir, 1)
+    checkpoints.save_checkpoint(state, workdir, 1)
     small = ["--synthetic", "--synthetic_size", "4", "--batch_size", "2", "--steps", "1",
              "--device", "cuda"]
     raised = None

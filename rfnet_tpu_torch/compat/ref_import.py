@@ -251,18 +251,17 @@ def main(argv=None) -> None:
                     "export)")
     args = ap.parse_args(argv)
 
-    # the trainer's checkpoint format and naming
-    from rfnet_tpu_torch.eval import list_checkpoints
-    from rfnet_tpu_torch.train import TrainConfig, create_state, save_checkpoint
+    from rfnet_tpu_torch import checkpoints
+    from rfnet_tpu_torch.train import TrainConfig, create_state
 
     if args.export:
-        found = dict(list_checkpoints(args.workdir))
+        found = dict(checkpoints.list_checkpoints(args.workdir))
         step = args.step if args.step is not None else max(found, default=None)
         if step not in found:
             sys.exit(f"no checkpoint {'' if step is None else f'at step {step} '}under "
                      f"{args.workdir}")
-        ckpt = torch.load(found[step], map_location="cpu", weights_only=True)
-        export_reference_checkpoint(args.ref_prefix, ckpt["model"], step=step)
+        state_dict, _ = checkpoints.read_state_dict(found[step])
+        export_reference_checkpoint(args.ref_prefix, state_dict, step=step)
         print(f"wrote {args.ref_prefix}.index / .data-00000-of-00001 (step {step})")
         return
 
@@ -276,7 +275,7 @@ def main(argv=None) -> None:
     state.model.load_state_dict(import_reference_checkpoint(args.ref_prefix, state.model),
                                 strict=True)
     state.step = step
-    path = save_checkpoint(state, args.workdir, config.max_to_keep)
+    path = checkpoints.save_checkpoint(state, args.workdir, config.max_to_keep)
     print(f"imported {args.ref_prefix} -> {path} step {step} "
           f"({sum(p.numel() for p in state.model.parameters())} params)")
 

@@ -30,19 +30,15 @@ Port of ``rfnet_tpu/eval.py``:
 
 ``--model`` picks the network: ``rfnet`` (the default, the JAX CLI's) or
 ``snowflakenet`` (``models/snowflakenet.py``, served at its published PCN
-widths); without it, a checkpoint's keys tell. Each partial is resampled to
-the model's input size (RFNet 3 000 points, SnowflakeNet 2 048).
+widths), the names of ``models.MODELS``; without it, a checkpoint's keys
+tell. Each partial is resampled to the model's ``input_points`` (RFNet
+3 000, SnowflakeNet 2 048).
 
 Weights (``--checkpoint``, default ``./bestrecord`` as in the JAX CLI)
-come from a directory: the trainer's ``bestrecord/`` (its ``model.pt``) or
-its workdir (the ``"model"`` entry of the newest ``ckpt_<step>.pt``); or
-from a file: a trainer checkpoint ``ckpt_<step>.pt``, a ``torch.save``d
-``state_dict`` (``.pt``) or an ``.npz`` of flat flax params (``{"a/b/leaf":
-array}``, with the training step under ``__step__``), such as the converged
-``weights/rfnet_r4_105000.npz`` that ``tools/export_torch_weights.py``
-writes; legacy shared step biases are upgraded on the way
-(``compat.ckpt_compat``). The model's size is read off the weights; a
-SnowflakeNet comes from a ``state_dict`` (``.pt``) under its module names.
+come from a trainer's ``bestrecord/`` or workdir, one of its checkpoints, a
+``torch.save``d ``state_dict`` or an ``.npz`` of flat flax params such as
+the converged ``weights/rfnet_r4_105000.npz``: ``checkpoints.load_state``
+reads them and builds the network they are weights of, to their sizes.
 Where there are no weights, the model is a random init from a seed. Runs on
 ``--device cuda`` unless asked for ``cpu``; a request for ``cuda`` without a
 card is an error.
@@ -58,12 +54,10 @@ from __future__ import annotations
 
 import argparse
 import csv
-import glob
 import importlib.util
 import itertools
 import os
 import queue
-import re
 import threading
 import time
 from collections import deque
@@ -72,141 +66,25 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from rfnet_tpu_torch.compat import ckpt_compat
-from rfnet_tpu_torch.compat.convert import flax_to_state_dict
+from rfnet_tpu_torch.checkpoints import load_state
 from rfnet_tpu_torch.data.dataset import resample_pcd
 from rfnet_tpu_torch.data.pcd_io import read_pcd, save_pcd
-from rfnet_tpu_torch.models import RFNet
-from rfnet_tpu_torch.models.snowflakenet import SnowflakeNet
+from rfnet_tpu_torch.models import MODELS
 from rfnet_tpu_torch.ops.chamfer import chamfer_sample_means, nn_sample_mean_one
-from rfnet_tpu_torch.parallel import Mesh, make_mesh, maybe_initialize_distributed, torchrun_world
+from rfnet_tpu_torch.parallel import (
+    Mesh,
+    make_mesh,
+    maybe_initialize_distributed,
+    resolve_device,
+    torchrun_world,
+)
 from rfnet_tpu_torch.tracing import profile_trace, span
 
-INPUT_POINTS = 3000  # RFNet's; a model with ``input_points`` takes its own
-MODELS = ("rfnet", "snowflakenet")
-RANDOM_INIT_SEED = 1  # the JAX TrainConfig's default seed
 DEPTH = 3  # batches in flight under --pipeline
 
 
 def count_params(model: torch.nn.Module) -> int:
     return sum(p.numel() for p in model.parameters())
-
-
-def _model_for(state_dict: dict, dtype: torch.dtype | None = None) -> RFNet:
-    """An RFNet whose sizes match ``state_dict`` (seed count and up ratio
-    read off the ``points_out`` layers), computing in ``dtype``."""
-    n_seed = (state_dict["init_cell.points_out.weight"].shape[0] - 12) // 3
-    up_ratio = state_dict["decode_cell.points_out.weight"].shape[0] // 3
-    return RFNet(n_seed=n_seed, up_ratio=up_ratio, dtype=dtype)
-
-
-def _load_npz(checkpoint: str, dtype: torch.dtype | None = None) -> RFNet:
-    """The model of an ``.npz`` of flat flax params, its size read off the
-    kernels: legacy shared step biases upgraded (``ckpt_compat``), renamed
-    (``flax_to_state_dict``) and loaded strictly. Prints the training step
-    stored in the file."""
-    with np.load(checkpoint) as z:
-        flat = {k: z[k] for k in z.files if not k.startswith("__")}
-        step = int(z["__step__"]) if "__step__" in z.files else None
-    print(f"checkpoint {checkpoint}: step {step}")
-    model = _model_for(flax_to_state_dict(flat), dtype)
-    flat, upgraded = ckpt_compat.upgrade(flat, ckpt_compat.expected_shapes(model.state_dict()))
-    if upgraded:
-        print("checkpoint upgraded from legacy shared-bias layout")
-    model.load_state_dict(flax_to_state_dict(flat), strict=True)
-    return model
-
-
-CHECKPOINT_NAME = re.compile(r"ckpt_(\d+)\.pt")  # the trainer's checkpoint files
-
-
-def list_checkpoints(workdir: str) -> list[tuple[int, str]]:
-    """(step, path) of every ``ckpt_<step>.pt`` in ``workdir``, oldest first."""
-    found = []
-    for path in glob.glob(os.path.join(workdir, "ckpt_*.pt")):
-        m = CHECKPOINT_NAME.fullmatch(os.path.basename(path))
-        if m:
-            found.append((int(m.group(1)), path))
-    return sorted(found)
-
-
-def _checkpoint_file(checkpoint: str) -> str | None:
-    """The file that holds ``checkpoint``'s weights: the file itself; for a
-    directory its ``model.pt`` (the trainer's ``bestrecord/``), else its
-    newest ``ckpt_<step>.pt`` (a workdir); None where there is neither."""
-    if os.path.isfile(checkpoint):
-        return checkpoint
-    if not os.path.isdir(checkpoint):
-        return None
-    best = os.path.join(checkpoint, "model.pt")
-    if os.path.isfile(best):
-        return best
-    found = list_checkpoints(checkpoint)
-    return found[-1][1] if found else None
-
-
-def _snowflake_for(state_dict: dict, sizes: dict | None) -> SnowflakeNet:
-    """A SnowflakeNet whose global feature, seeds and up factors match
-    ``state_dict``, and whose other sizes are ``sizes`` (as published where
-    not given)."""
-    dim_feat, _, num_pc = state_dict["decoder.decoder_coarse.ps.weight"].shape
-    ups, i = [], 1
-    while f"decoder.uppers.{i}.ps.weight" in state_dict:
-        ups.append(state_dict[f"decoder.uppers.{i}.ps.weight"].shape[2])
-        i += 1
-    return SnowflakeNet(dim_feat=dim_feat, num_pc=num_pc, up_factors=tuple(ups), **(sizes or {}))
-
-
-def load_state(checkpoint: str | None, dtype: torch.dtype | None = None,
-               model: str | None = None, sizes: dict | None = None) -> torch.nn.Module:
-    """The model with weights from ``checkpoint`` (a directory or a file, as
-    the module docstring lists); its feature MLPs compute in ``dtype`` (None
-    = float32; SnowflakeNet only float32). ``model`` ("rfnet" or
-    "snowflakenet") names the network; None: the checkpoint's keys tell, and
-    RFNet where there are none. ``sizes``: SnowflakeNet's sizes that its
-    weights do not hold (``num_p0``, ``radius``, ``sa_points``,
-    ``input_points``), as published where None.
-
-    Where ``checkpoint`` is None or holds no weights, warns and returns the
-    full-size model's random init, drawn from a generator seeded
-    ``RANDOM_INIT_SEED``."""
-    if model not in (None, *MODELS):
-        raise SystemExit(f"--model {model}: one of {', '.join(MODELS)}")
-    if model == "snowflakenet" and dtype not in (None, torch.float32):
-        raise SystemExit("SnowflakeNet is served in float32 only (no --bf16)")
-    path = None if checkpoint is None else _checkpoint_file(checkpoint)
-    if path is None:
-        print(f"WARNING: no checkpoint under {checkpoint}; evaluating random init")
-        g = torch.Generator().manual_seed(RANDOM_INIT_SEED)
-        if model == "snowflakenet":
-            return SnowflakeNet(generator=g, **(sizes or {}))
-        return RFNet(generator=g, dtype=dtype)
-    if path.endswith(".npz"):
-        if model == "snowflakenet":
-            raise SystemExit(f"{path}: an .npz holds RFNet's flax weights, not SnowflakeNet's")
-        return _load_npz(path, dtype)
-    state_dict = torch.load(path, map_location="cpu", weights_only=True)
-    if CHECKPOINT_NAME.fullmatch(os.path.basename(path)):
-        print(f"checkpoint {path}: step {state_dict['step']}")
-        state_dict = state_dict["model"]
-    snowflake = "decoder.decoder_coarse.ps.weight" in state_dict
-    if model is not None and snowflake != (model == "snowflakenet"):
-        raise SystemExit(f"{path} holds {'SnowflakeNet' if snowflake else 'RFNet'} weights, "
-                         f"not --model {model}'s")
-    if snowflake and dtype not in (None, torch.float32):
-        raise SystemExit("SnowflakeNet is served in float32 only (no --bf16)")
-    net = _snowflake_for(state_dict, sizes) if snowflake else _model_for(state_dict, dtype)
-    net.load_state_dict(state_dict, strict=True)
-    return net
-
-
-def resolve_device(name: str | torch.device) -> torch.device:
-    device = torch.device(name)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit(f"--device {name}: no CUDA device is available (pass --device cpu)")
-    if device.type not in ("cuda", "cpu"):
-        raise SystemExit(f"--device {name}: only cuda and cpu are supported")
-    return device
 
 
 def make_complete_fn(model: torch.nn.Module, mesh: Mesh | None = None):
@@ -363,7 +241,7 @@ def _serve(args, device: torch.device, mesh: Mesh | None):
     say = print if lead else (lambda *a, **k: None)
     dtype = torch.bfloat16 if args.bf16 else None
     model = load_state(args.checkpoint, dtype, args.model).to(device).eval()
-    args.input_points = getattr(model, "input_points", INPUT_POINTS)
+    args.input_points = model.input_points
     say("trainable parameters:", count_params(model))
     complete, metrics = make_complete_fn(model, mesh)
     can_plot = importlib.util.find_spec("matplotlib") is not None
@@ -502,7 +380,7 @@ def main(argv=None):
     parser.add_argument("--data_dir", default="../../dense_data/test")
     parser.add_argument("--checkpoint", default="./bestrecord")
     parser.add_argument(
-        "--model", choices=MODELS, default=None,
+        "--model", choices=tuple(MODELS), default=None,
         help="the network: rfnet, or snowflakenet at its published PCN widths (2048 points "
         "in, 16384 out); default: the checkpoint's, RFNet where there is none",
     )

@@ -38,7 +38,9 @@ import os
 
 import torch
 
-from rfnet_tpu_torch.eval import INPUT_POINTS, count_params, load_state, resolve_device
+from rfnet_tpu_torch.checkpoints import load_state
+from rfnet_tpu_torch.eval import count_params
+from rfnet_tpu_torch.parallel import resolve_device
 
 # the batch an export with a symbolic batch is traced at: a size of 1 would
 # be specialised on (torch's 0/1 rule), so the trace takes 2 and the Dim
@@ -47,7 +49,7 @@ _TRACE_BATCH = 2
 
 
 class _Forward(torch.nn.Module):
-    """``partial -> out4`` of an RFNet, the function an artifact holds."""
+    """``partial -> out4`` of a network, the function an artifact holds."""
 
     def __init__(self, model: torch.nn.Module):
         super().__init__()
@@ -58,13 +60,15 @@ class _Forward(torch.nn.Module):
 
 
 def export_forward(model: torch.nn.Module, batch_size: int | None,
-                   innum: int = INPUT_POINTS) -> torch.export.ExportedProgram:
+                   innum: int | None = None) -> torch.export.ExportedProgram:
     """Export ``partial (b, innum, 3) -> completion`` of ``model``, traced
     for the device its parameters lie on, with the weights in the program.
-    ``batch_size`` None exports a symbolic batch of at least 1."""
+    ``batch_size`` None exports a symbolic batch of at least 1; ``innum``
+    None is the model's ``input_points``."""
     device = next(model.parameters()).device
     b = _TRACE_BATCH if batch_size is None else batch_size
-    example = torch.zeros((b, innum, 3), dtype=torch.float32, device=device)
+    example = torch.zeros((b, innum or model.input_points, 3), dtype=torch.float32,
+                          device=device)
     dynamic = None
     if batch_size is None:
         dynamic = {"partial": {0: torch.export.Dim("b", min=1)}}
@@ -131,10 +135,9 @@ def main(argv=None):
 
     model = load_state(args.checkpoint, torch.bfloat16 if args.bf16 else None).to(device)
     print("trainable parameters:", count_params(model))
-    points = 2 * model.n_seed * model.decode_cell.up_ratio**2  # out4: two ×up steps
-    if points != args.num_gt_points:
+    if model.output_points != args.num_gt_points:
         raise SystemExit(f"--num_gt_points {args.num_gt_points}: the checkpoint's model "
-                         f"completes {points} points")
+                         f"completes {model.output_points} points")
     exported = export_forward(model, args.batch_size or None)
     shape_in, shape_out = io_shapes(exported)
     size = save_exported(exported, args.out)

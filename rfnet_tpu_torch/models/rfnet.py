@@ -242,13 +242,20 @@ class RFNet(nn.Module):
     Parameters are drawn from ``generator`` (a CPU ``torch.Generator``; a
     fresh one seeded 0 when omitted); move the model with ``.to(device)``.
     ``dtype`` is the feature MLPs' computation dtype (None = float32; the
-    parameters stay float32 either way)."""
+    parameters stay float32 either way). ``input_points`` is the cloud size
+    it is published for, to which the eval CLI resamples each partial;
+    ``output_points`` is the size of ``out4``."""
+
+    KEY = "init_cell.points_out.weight"  # a weight only RFNet has (models.network_of)
 
     def __init__(self, state_len: int = 256, n_seed: int = 32, up_ratio: int = 16,
-                 generator: torch.Generator | None = None, dtype: torch.dtype | None = None):
+                 generator: torch.Generator | None = None, dtype: torch.dtype | None = None,
+                 input_points: int = 3000):
         super().__init__()
         g = generator if generator is not None else torch.Generator().manual_seed(0)
         self.n_seed = n_seed
+        self.input_points = input_points
+        self.output_points = 2 * n_seed * up_ratio**2  # 2·n_seed points, ×up_ratio twice
         self.dtype = dtype or torch.float32
         d = dtype
         code = 256  # width of every codeword (cell mlpout / recover mlp2)
@@ -271,6 +278,17 @@ class RFNet(nn.Module):
             with torch.no_grad():
                 p.uniform_(-lim, lim, generator=g)
             self.register_parameter(name, p)
+
+    @classmethod
+    def for_weights(cls, state_dict: dict, sizes: dict | None = None,
+                    dtype: torch.dtype | None = None) -> RFNet:
+        """An RFNet that ``state_dict`` loads into: its seed count and up
+        ratio read off the ``points_out`` layers, its other sizes ``sizes``
+        (as published where not given), its feature MLPs computing in
+        ``dtype``."""
+        n_seed = (state_dict["init_cell.points_out.weight"].shape[0] - 12) // 3
+        up_ratio = state_dict["decode_cell.points_out.weight"].shape[0] // 3
+        return cls(n_seed=n_seed, up_ratio=up_ratio, dtype=dtype, **(sizes or {}))
 
     def forward(self, pointcloud: torch.Tensor) -> RFNetOutputs:
         with span("rfnet.forward"):

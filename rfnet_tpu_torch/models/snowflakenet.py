@@ -394,18 +394,40 @@ class SnowflakeOutputs:
 class SnowflakeNet(nn.Module):
     """SnowflakeNet at the published PCN widths by default (module
     docstring); ``input_points`` is the cloud size it is published for, to
-    which the eval CLI resamples each partial. Parameters are drawn from
-    ``generator`` (a CPU ``torch.Generator``; a fresh one seeded 0 when
-    omitted)."""
+    which the eval CLI resamples each partial; ``output_points`` is the size
+    of ``out4``. Parameters are drawn from ``generator`` (a CPU
+    ``torch.Generator``; a fresh one seeded 0 when omitted). It computes in
+    float32 only: ``dtype`` is there to refuse any other."""
+
+    KEY = "decoder.decoder_coarse.ps.weight"  # a weight only SnowflakeNet has (models.network_of)
 
     def __init__(self, dim_feat: int = 512, num_pc: int = 256, num_p0: int = 512,
                  radius: float = 1.0, up_factors: tuple = (4, 8), sa_points: tuple = (512, 128),
-                 input_points: int = 2048, generator: torch.Generator | None = None):
+                 input_points: int = 2048, generator: torch.Generator | None = None,
+                 dtype: torch.dtype | None = None):
+        if dtype not in (None, torch.float32):
+            raise SystemExit("SnowflakeNet is served in float32 only (no --bf16)")
         super().__init__()
         g = generator if generator is not None else torch.Generator().manual_seed(0)
         self.input_points = input_points
+        self.output_points = num_p0 * math.prod(up_factors)
         self.feat_extractor = FeatureExtractor(g, dim_feat, sa_points)
         self.decoder = Decoder(g, dim_feat, num_pc, num_p0, radius, tuple(up_factors))
+
+    @classmethod
+    def for_weights(cls, state_dict: dict, sizes: dict | None = None,
+                    dtype: torch.dtype | None = None) -> SnowflakeNet:
+        """A SnowflakeNet that ``state_dict`` loads into: its global
+        feature, seeds and up factors read off the transposed convolutions,
+        its other sizes ``sizes`` (``num_p0``, ``radius``, ``sa_points``,
+        ``input_points``; as published where not given)."""
+        dim_feat, _, num_pc = state_dict["decoder.decoder_coarse.ps.weight"].shape
+        ups, i = [], 1
+        while f"decoder.uppers.{i}.ps.weight" in state_dict:
+            ups.append(state_dict[f"decoder.uppers.{i}.ps.weight"].shape[2])
+            i += 1
+        return cls(dim_feat=dim_feat, num_pc=num_pc, up_factors=tuple(ups), dtype=dtype,
+                   **(sizes or {}))
 
     def load_state_dict(self, state_dict, strict: bool = True, assign: bool = False):
         """``nn.Module.load_state_dict``, where a 1×1 convolution's weight may

@@ -2,6 +2,7 @@ from rfnet_tpu_torch.parallel.mesh import (
     Mesh,
     make_mesh,
     maybe_initialize_distributed,
+    resolve_device,
     shard_batch,
     torchrun_world,
 )
@@ -10,6 +11,7 @@ __all__ = [
     "Mesh",
     "make_mesh",
     "maybe_initialize_distributed",
+    "resolve_device",
     "shard_batch",
     "torchrun_world",
 ]

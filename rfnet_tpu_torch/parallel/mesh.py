@@ -43,6 +43,17 @@ def torchrun_world() -> int | None:
     return int(os.environ["WORLD_SIZE"])
 
 
+def resolve_device(name: str | torch.device) -> torch.device:
+    """The device a CLI's ``--device`` names, refused where it is neither the
+    card nor the CPU, or where it is the card and there is none."""
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit(f"--device {name}: no CUDA device is available (pass --device cpu)")
+    if device.type not in ("cuda", "cpu"):
+        raise SystemExit(f"--device {name}: only cuda and cpu are supported")
+    return device
+
+
 def _rank_device(device: torch.device | str, rank: int, world: int) -> torch.device:
     """This rank's device: ``device`` as given where it names a card (or
     the CPU); for a bare "cuda" the card ``LOCAL_RANK`` (0 in a world of 1).

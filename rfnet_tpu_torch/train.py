@@ -31,10 +31,11 @@
   ``learning_rate(step)``, ``step`` being the number of updates done so far,
   which is where optax evaluates its schedule; the same count feeds
   ``decfactor_weight``.
-* Checkpoints every ``ckpt_every`` steps: ``<workdir>/ckpt_<step>.pt``
-  (``torch.save`` of model, optimizer and step), the newest ``max_to_keep``
-  kept, the latest restored at start. After each checkpoint the eval set is
-  scored (CD and EMD of the final output); the best CD so far is kept in
+* Checkpoints every ``ckpt_every`` steps (``checkpoints.py`` holds the
+  layout): ``<workdir>/ckpt_<step>.pt`` (``torch.save`` of model, optimizer
+  and step), the newest ``max_to_keep`` kept, the latest restored at
+  start. After each checkpoint the eval set is scored (CD and EMD of the
+  final output); the best CD so far is kept in
   ``<workdir>/../bestrecord/`` as ``model.pt`` (the state_dict the eval CLI
   loads) and ``best.json``, which a resumed run reads back.
 * Every ``log_every`` steps the reference's scalars are printed and
@@ -68,10 +69,9 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from rfnet_tpu_torch import losses
+from rfnet_tpu_torch import checkpoints, losses
 from rfnet_tpu_torch.data import online
 from rfnet_tpu_torch.data.dataset import resample_pcd
-from rfnet_tpu_torch.eval import list_checkpoints, profile_trace, resolve_device
 from rfnet_tpu_torch.models import RFNet
 from rfnet_tpu_torch.ops.chamfer import chamfer_means
 from rfnet_tpu_torch.ops.fps import farthest_point_sample, gather_point
@@ -79,10 +79,12 @@ from rfnet_tpu_torch.parallel import (
     Mesh,
     make_mesh,
     maybe_initialize_distributed,
+    resolve_device,
     shard_batch,
     torchrun_world,
 )
 from rfnet_tpu_torch.parallel.mesh import TORCHRUN_ENV
+from rfnet_tpu_torch.tracing import profile_trace
 
 
 @dataclasses.dataclass
@@ -385,46 +387,6 @@ def _tb_writer(logdir: str):
     return SummaryWriter(logdir)
 
 
-def _save_atomic(obj, path: str) -> None:
-    tmp = path + ".tmp"
-    torch.save(obj, tmp)
-    os.replace(tmp, path)
-
-
-def save_checkpoint(state: TrainState, workdir: str, max_to_keep: int) -> str:
-    """Write ``ckpt_<step>.pt`` and drop all but the newest ``max_to_keep``."""
-    os.makedirs(workdir, exist_ok=True)
-    path = os.path.join(workdir, f"ckpt_{state.step}.pt")
-    _save_atomic({"model": state.model.state_dict(),
-                  "optimizer": state.optimizer.state_dict(), "step": state.step}, path)
-    for _, old in list_checkpoints(workdir)[:-max_to_keep]:
-        os.remove(old)
-    return path
-
-
-def restore_if_available(state: TrainState, workdir: str) -> bool:
-    """Load the latest checkpoint of ``workdir`` into ``state``, if any."""
-    found = list_checkpoints(workdir)
-    if not found:
-        return False
-    step, path = found[-1]
-    device = next(state.model.parameters()).device
-    ckpt = torch.load(path, map_location=device, weights_only=True)
-    state.model.load_state_dict(ckpt["model"], strict=True)
-    state.optimizer.load_state_dict(ckpt["optimizer"])
-    state.step = int(ckpt["step"])
-    print(f"restored checkpoint at step {state.step} ({path})")
-    return True
-
-
-def _read_best_cd(path: str) -> float:
-    try:
-        with open(path) as f:
-            return float(json.load(f)["cd"])
-    except FileNotFoundError:
-        return float("inf")
-
-
 def _append_jsonl(path: str, record: dict) -> None:
     with open(path, "a") as f:
         f.write(json.dumps(record) + "\n")
@@ -478,19 +440,17 @@ def train(config: TrainConfig, train_df, valid_df, valid_num: int,
     state = create_state(config, device)
     if mesh is not None:
         mesh.build_kernels()  # also the barrier before every rank restores
-    restore_if_available(state, config.workdir)
+    checkpoints.restore_if_available(state, config.workdir)
     if mesh is not None:
         for t in state.model.state_dict().values():
             mesh.broadcast_(t)
-    root = os.path.join(config.workdir, "..")
-    best_dir = os.path.join(root, "bestrecord")
-    best_meta = os.path.join(best_dir, "best.json")
-    logs = os.path.join(root, "logs")
+    best_dir = checkpoints.best_record(config.workdir)
+    logs = os.path.join(config.workdir, "..", "logs")
     os.makedirs(logs, exist_ok=True)
     metrics_path = os.path.join(logs, "metrics.jsonl")
     # best-by-CD survives restarts, so a resumed run's first eval cannot
     # overwrite a better earlier record
-    best_cd = _read_best_cd(best_meta)
+    best_cd, best_meta = checkpoints.read_best(best_dir)
     if best_cd < float("inf"):
         print(f"best-so-far cd {best_cd:.6f} (from {best_meta})")
     n1 = 2 * config.n_seed
@@ -570,7 +530,7 @@ def train(config: TrainConfig, train_df, valid_df, valid_num: int,
                             tb.add_histogram(name, p.detach().cpu().numpy(), i)
             if (i + 1) % config.ckpt_every == 0:
                 if lead:
-                    save_checkpoint(state, config.workdir, config.max_to_keep)
+                    checkpoints.save_checkpoint(state, config.workdir, config.max_to_keep)
                 mean_cd, mean_emd = evaluate(state, valid_iter, valid_num, config, place_eval,
                                              mesh)
                 print(f"eval @ {i + 1}: mean cd {mean_cd:.6f} mean emd {mean_emd:.6f}")
@@ -581,11 +541,7 @@ def train(config: TrainConfig, train_df, valid_df, valid_num: int,
                 if mean_cd < best_cd:
                     best_cd = mean_cd
                     if lead:
-                        os.makedirs(best_dir, exist_ok=True)
-                        _save_atomic(state.model.state_dict(),
-                                     os.path.join(best_dir, "model.pt"))
-                        with open(best_meta, "w") as f:
-                            json.dump({"step": i + 1, "cd": best_cd}, f)
+                        checkpoints.save_best(best_dir, state.model, i + 1, best_cd)
                     print("record bestsofar:", mean_emd, mean_cd)
     finally:
         # stop the dataflows' prefetch threads on every exit path

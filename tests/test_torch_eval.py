@@ -15,6 +15,7 @@ from rfnet_tpu.train import TrainConfig, create_state
 from rfnet_tpu_torch import eval as teval
 from rfnet_tpu_torch.compat.convert import flatten_params, flax_to_state_dict
 from rfnet_tpu_torch.data import dataset, pcd_io
+from rfnet_tpu_torch.models import RFNet
 
 
 def _fixtures(root, rng, ids, n_partial=40, n_gt=128):
@@ -197,7 +198,7 @@ def test_eval_cli_pipelined_matches_sync_and_jax(tmp_path, rng, monkeypatch):
 def test_eval_profile_dir_writes_a_parseable_trace(tmp_path, rng):
     list_path = _fixtures(str(tmp_path), rng, ["0001/a"])
     ckpt = os.path.join(tmp_path, "model.pt")
-    torch.save(teval.RFNet(n_seed=4, up_ratio=4).state_dict(), ckpt)
+    torch.save(RFNet(n_seed=4, up_ratio=4).state_dict(), ckpt)
     prof = os.path.join(tmp_path, "prof")
     teval.main(["--list_path", list_path, "--data_dir", os.path.join(tmp_path, "data"),
                 "--checkpoint", ckpt, "--results_dir", os.path.join(tmp_path, "r"),
@@ -216,7 +217,7 @@ def test_eval_profile_dir_writes_counters_beside_the_trace(tmp_path, rng):
 
     list_path = _fixtures(str(tmp_path), rng, ["0001/a", "0001/b"])
     ckpt = os.path.join(tmp_path, "model.pt")
-    torch.save(teval.RFNet(n_seed=4, up_ratio=4).state_dict(), ckpt)
+    torch.save(RFNet(n_seed=4, up_ratio=4).state_dict(), ckpt)
     prof = os.path.join(tmp_path, "prof")
     teval.main(["--list_path", list_path, "--data_dir", os.path.join(tmp_path, "data"),
                 "--checkpoint", ckpt, "--results_dir", os.path.join(tmp_path, "r"),

@@ -16,6 +16,7 @@ import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
 
 from rfnet_tpu.models import RFNet as JRFNet
+from rfnet_tpu_torch import checkpoints
 from rfnet_tpu_torch import eval as teval
 from rfnet_tpu_torch import export as texport
 from rfnet_tpu_torch import train
@@ -240,12 +241,12 @@ def test_eval_cli_serves_checkpoint_directories(tmp_path, rng, monkeypatch, caps
     torch.save(state.model.state_dict(), best / "model.pt")
     work = str(tmp_path / "work")
     state.step = 3
-    train.save_checkpoint(state, work, 2)
+    checkpoints.save_checkpoint(state, work, 2)
     with torch.no_grad():  # an older checkpoint of other weights, not served
         for p in state.model.parameters():
             p.add_(1.0)
     state.step = 1
-    train.save_checkpoint(state, work, 2)
+    checkpoints.save_checkpoint(state, work, 2)
 
     csvs = {"model.pt": _serve(tmp_path, str(best / "model.pt"), "file"),
             "bestrecord/": _serve(tmp_path, str(best), "dir"),
@@ -258,5 +259,5 @@ def test_eval_cli_serves_checkpoint_directories(tmp_path, rng, monkeypatch, caps
     assert len(set(csvs.values())) == 1, csvs
     assert csvs["model.pt"].count("\n") == len(ids) + 1
     os.remove(best / "model.pt")  # an empty directory: the random init, with a warning
-    assert teval.load_state(str(best)).n_seed == 32
+    assert checkpoints.load_state(str(best)).n_seed == 32
     assert "no checkpoint under" in capsys.readouterr().out

@@ -21,7 +21,7 @@ from rfnet_tpu import losses as jlosses
 from rfnet_tpu import train as jtrain
 from rfnet_tpu.data.online import synthetic_batch as j_synthetic_batch
 from rfnet_tpu_torch import eval as teval
-from rfnet_tpu_torch import losses, train
+from rfnet_tpu_torch import checkpoints, losses, train
 from rfnet_tpu_torch.data import online
 from rfnet_tpu_torch.data.dataset import PREFETCH_THREAD, BatchedDataflow, synthetic_dataflow
 from rfnet_tpu_torch.ops.fps import farthest_point_sample, gather_point
@@ -203,7 +203,7 @@ def test_debug_nans_raises_and_stops_the_prefetch_threads(tmp_path):
     state = train.create_state(train.TrainConfig(**TINY), "cpu")
     with torch.no_grad():
         state.model.cell.state_mlp.l0.weight[0, 0] = float("nan")
-    train.save_checkpoint(state, str(workdir), 1)
+    checkpoints.save_checkpoint(state, str(workdir), 1)
     with pytest.raises(FloatingPointError, match="step 0"):
         train.main(_tiny_argv(workdir, 2, "--synthetic", "--synthetic_size", "4",
                               "--debug_nans"))

@@ -18,6 +18,7 @@ from rfnet_tpu_torch import eval as teval
 from rfnet_tpu_torch import losses, parallel, train
 from rfnet_tpu_torch.data import pcd_io
 from rfnet_tpu_torch.data.dataset import synthetic_dataflow
+from rfnet_tpu_torch.models import RFNet
 
 TINY = torch_dist.TINY
 B = 4  # the global batch of the W=2 checks
@@ -73,7 +74,7 @@ def _eval_fixtures(root):
             pcd_io.save_pcd(path, rng.rand(n, 3).astype(np.float32))
     with open(os.path.join(root, "test.list"), "w") as f:
         f.write("\n".join(EVAL_IDS))
-    torch.save(teval.RFNet(n_seed=4, up_ratio=4, generator=torch.Generator().manual_seed(3))
+    torch.save(RFNet(n_seed=4, up_ratio=4, generator=torch.Generator().manual_seed(3))
                .state_dict(), os.path.join(root, "model.pt"))
 
 

@@ -24,8 +24,7 @@ import torch
 from rfnet_tpu.compat import ref_import as jref
 from rfnet_tpu.compat import tf_bundle as jbundle
 from rfnet_tpu.models import RFNet as JRFNet
-from rfnet_tpu_torch import eval as teval
-from rfnet_tpu_torch import train
+from rfnet_tpu_torch import checkpoints, train
 from rfnet_tpu_torch.compat import ref_import, tf_bundle
 from rfnet_tpu_torch.compat.convert import (
     flatten_params,
@@ -313,7 +312,7 @@ def test_state_dict_to_flax_inverts_flax_to_state_dict(tmp_path, rng):
         got = model(torch.from_numpy(pc)).out4
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-5)
     # the eval CLI serves the file
-    served = teval.load_state(path)
+    served = checkpoints.load_state(path)
     assert_state_dicts_equal(served.state_dict(), model.state_dict())
 
 
@@ -334,12 +333,12 @@ def test_cli_both_ways(tmp_path, capsys):
     workdir = str(tmp_path / "work")
     ref_import.main(["--ref_prefix", jprefix, "--workdir", workdir])
     assert "step 229999" in capsys.readouterr().out
-    assert [s for s, _ in teval.list_checkpoints(workdir)] == [229999]
+    assert [s for s, _ in checkpoints.list_checkpoints(workdir)] == [229999]
 
-    served = teval.load_state(workdir)  # a workdir of ckpt_<step>.pt
+    served = checkpoints.load_state(workdir)  # a workdir of ckpt_<step>.pt
     assert_state_dicts_equal(served.state_dict(), state_dict)
     state = train.create_state(train.TrainConfig(), device="cpu")
-    assert train.restore_if_available(state, workdir) and state.step == 229999
+    assert checkpoints.restore_if_available(state, workdir) and state.step == 229999
     assert_state_dicts_equal(state.model.state_dict(), state_dict)
 
     out_prefix = str(tmp_path / "out" / "model-0")

@@ -25,8 +25,8 @@ from torch.profiler import ProfilerActivity, profile
 
 from benchmark import flops_snowflake
 from benchmark.reference import snowflakenet as ref
+from rfnet_tpu_torch import checkpoints, tracing
 from rfnet_tpu_torch import eval as teval
-from rfnet_tpu_torch import tracing
 from rfnet_tpu_torch.data import pcd_io
 from rfnet_tpu_torch.models.snowflakenet import SnowflakeNet
 from rfnet_tpu_torch.ops import knn, vector_attention
@@ -82,9 +82,9 @@ def test_forward_matches_the_reference(seed):
 
 
 def test_published_size_and_parameters():
-    model = teval.load_state(None, model="snowflakenet")
+    model = checkpoints.load_state(None, model="snowflakenet")
     assert teval.count_params(model) == 19_317_612 and model.input_points == 2048
-    same = SnowflakeNet(generator=torch.Generator().manual_seed(teval.RANDOM_INIT_SEED))
+    same = SnowflakeNet(generator=torch.Generator().manual_seed(checkpoints.RANDOM_INIT_SEED))
     assert all(torch.equal(a, b) for a, b in zip(model.state_dict().values(),
                                                  same.state_dict().values()))
     assert flops_snowflake.stage_points(dict(num_p0=512, up_factors=[4, 8])) == [512, 512, 2048,
@@ -171,19 +171,19 @@ def test_load_state_picks_the_model_by_its_keys(tmp_path):
     small = SnowflakeNet(num_pc=32, up_factors=(2, 2), generator=torch.Generator().manual_seed(6))
     path = str(tmp_path / "snow.pt")
     torch.save(small.state_dict(), path)
-    got = teval.load_state(path)
+    got = checkpoints.load_state(path)
     assert isinstance(got, SnowflakeNet)
     assert all(torch.equal(a, b) for a, b in zip(got.state_dict().values(),
                                                  small.state_dict().values()))
     with pytest.raises(SystemExit):
-        teval.load_state(path, model="rfnet")
+        checkpoints.load_state(path, model="rfnet")
     with pytest.raises(SystemExit):
-        teval.load_state(None, torch.bfloat16, model="snowflakenet")
+        checkpoints.load_state(None, torch.bfloat16, model="snowflakenet")
     # published shapes (1x1 weights with their kernel dims) and the sizes
     # the weights do not hold
     published = str(tmp_path / "published.pt")
     torch.save(_weights(9), published)
-    got = teval.load_state(published, model="snowflakenet",
+    got = checkpoints.load_state(published, model="snowflakenet",
                            sizes=dict(num_p0=64, sa_points=(64, 16), input_points=256))
     want = _model(9)
     assert got.input_points == 256 and got.decoder.num_p0 == 64

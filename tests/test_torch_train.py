@@ -18,7 +18,7 @@ from rfnet_tpu.data.dataset import synthetic_dataflow as j_synthetic_dataflow
 from rfnet_tpu.models import RFNet as JRFNet
 from rfnet_tpu.ops.fps import farthest_point_sample as jfps
 from rfnet_tpu.ops.fps import gather_point as jgather
-from rfnet_tpu_torch import losses, train
+from rfnet_tpu_torch import checkpoints, losses, train
 from rfnet_tpu_torch.compat.convert import flatten_params, flax_to_state_dict
 from rfnet_tpu_torch.data.dataset import synthetic_dataflow
 from rfnet_tpu_torch.ops.fps import farthest_point_sample, gather_point
@@ -154,14 +154,14 @@ def test_checkpoints_keep_the_newest_and_restore(tmp_path):
     state = train.create_state(config, "cpu")
     for step in (2, 4, 6):
         state.step = step
-        train.save_checkpoint(state, str(tmp_path), max_to_keep=2)
+        checkpoints.save_checkpoint(state, str(tmp_path), max_to_keep=2)
     assert sorted(os.listdir(tmp_path)) == ["ckpt_4.pt", "ckpt_6.pt"]
     other = train.create_state(dataclasses.replace(config, seed=9), "cpu")
-    assert train.restore_if_available(other, str(tmp_path))
+    assert checkpoints.restore_if_available(other, str(tmp_path))
     assert other.step == 6
     for p, q in zip(state.model.parameters(), other.model.parameters()):
         assert torch.equal(p, q)
-    assert not train.restore_if_available(other, str(tmp_path / "empty"))
+    assert not checkpoints.restore_if_available(other, str(tmp_path / "empty"))
 
 
 def _tiny_argv(workdir, steps):

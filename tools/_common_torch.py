@@ -31,8 +31,8 @@ import dataclasses  # noqa: E402
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from rfnet_tpu_torch.eval import _checkpoint_file, load_state  # noqa: E402
-from rfnet_tpu_torch.eval import resolve_device  # noqa: E402,F401  (refuses a missing card)
+from rfnet_tpu_torch.checkpoints import load_state, weights_file  # noqa: E402
+from rfnet_tpu_torch.parallel import resolve_device  # noqa: E402,F401  (refuses a missing card)
 from rfnet_tpu_torch.models import RFNet  # noqa: E402
 
 # the converged weights (step 105000 of run_r4, held-out cd 0.023168)
@@ -45,12 +45,12 @@ def tool_model(config, device: torch.device, checkpoint: str | None = None,
                dtype: torch.dtype | None = None) -> RFNet:
     """The model a tool measures, on ``device``, its feature MLPs in
     ``dtype`` (None = float32): the weights of ``checkpoint`` (any form
-    ``eval.load_state`` takes; a path that holds none is an error), or for
+    ``checkpoints.load_state`` takes; a path that holds none is an error), or for
     None the random init ``train.create_state`` draws for ``config``."""
     if checkpoint is None:
         model = RFNet(n_seed=config.n_seed, up_ratio=config.up_ratio, dtype=dtype,
                       generator=torch.Generator().manual_seed(config.seed))
-    elif _checkpoint_file(checkpoint) is None:
+    elif weights_file(checkpoint) is None:
         raise SystemExit(f"{checkpoint}: no weights there")
     else:
         with contextlib.redirect_stdout(_sys.stderr):

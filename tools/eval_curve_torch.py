@@ -2,7 +2,7 @@
 with the PyTorch port alone: the counterpart of ``tools/eval_curve.py``.
 
 For each ``ckpt_<step>.pt`` of a workdir (or for one checkpoint of any form
-``rfnet_tpu_torch.eval.load_state`` takes: a ``ckpt_<step>.pt``, the
+``rfnet_tpu_torch.checkpoints.load_state`` takes: a ``ckpt_<step>.pt``, the
 trainer's ``bestrecord/``, a ``state_dict`` ``.pt`` or a flax ``.npz`` such
 as ``weights/rfnet_r4_105000.npz``) it scores
 
@@ -41,7 +41,13 @@ import numpy as np
 import torch
 
 from rfnet_tpu_torch.data.dataset import resample_pcd, synthetic_pairs
-from rfnet_tpu_torch.eval import CHECKPOINT_NAME, list_checkpoints, load_state, resolve_device
+from rfnet_tpu_torch.checkpoints import (
+    is_best_record,
+    list_checkpoints,
+    load_state,
+    stored_step,
+)
+from rfnet_tpu_torch.parallel import resolve_device
 from rfnet_tpu_torch.train import TrainState, eval_step
 
 IN_SAMPLE_SEED = 0
@@ -65,23 +71,14 @@ def checkpoints(path: str) -> list[tuple[int | None, str]]:
     workdir, oldest first; otherwise ``path`` itself, with the step its
     name, its ``__step__`` or its ``best.json`` gives (None where none
     does)."""
-    if os.path.isdir(path) and not os.path.isfile(os.path.join(path, "model.pt")):
+    if os.path.isdir(path) and not is_best_record(path):
         found = list_checkpoints(path)
         if not found:
             raise SystemExit(f"{path}: no ckpt_<step>.pt checkpoints")
         return found
     if not os.path.exists(path):
         raise SystemExit(f"{path}: no such checkpoint")
-    step = None
-    if m := CHECKPOINT_NAME.fullmatch(os.path.basename(path)):
-        step = int(m.group(1))
-    elif path.endswith(".npz"):
-        with np.load(path) as z:
-            step = int(z["__step__"]) if "__step__" in z.files else None
-    elif os.path.isfile(best := os.path.join(path, "best.json")):
-        with open(best) as f:
-            step = int(json.load(f)["step"])
-    return [(step, path)]
+    return [(stored_step(path), path)]
 
 
 def sweep(state: TrainState, parts: torch.Tensor, gts: torch.Tensor) -> float:

@@ -109,7 +109,9 @@ def main(argv=None):
         cmd += args.train_extra
         _run("train", cmd)
         print(f"[protocol_drive_torch] training logs in {os.path.join(root, 'logs')}")
-    if not os.path.isfile(os.path.join(best_dir, "model.pt")):
+    from rfnet_tpu_torch.checkpoints import weights_file
+
+    if weights_file(best_dir) is None:
         # checked for --skip_train too: the eval CLI would serve random weights
         sys.exit(f"[protocol_drive_torch] no best checkpoint at {best_dir}")
 
